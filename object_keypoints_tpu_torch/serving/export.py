@@ -1,0 +1,103 @@
+"""Serving artifacts and the inference contract.
+
+Counterpart of ``object_keypoints_tpu/serving/export.py``. An artifact is the
+directory the JAX package's ``export_model`` writes:
+
+    config.json    — model hyperparameters + keypoint config
+    params.msgpack — flax params + batch_stats (float32), flax msgpack format
+
+``load_model`` reads it with ``msgpack`` alone (no flax) and loads the
+weights through ``serving.weights``. ``make_inference_fn`` keeps the
+reference contract: frames (N, 3, H, W) in; sigmoid heatmaps (N, K, h, w),
+depth (N, K, h, w) and center offsets (N, T, 2, h, w) out, all float32.
+int8 serving is not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet, outputs_to_reference
+from object_keypoints_tpu_torch.serving.weights import keypoint_net_state_dict
+
+CONFIG_NAME = "config.json"
+PARAMS_NAME = "params.msgpack"
+_MSGPACK_NDARRAY = 1  # flax.serialization._MsgpackExtType.ndarray
+
+
+def model_from_config(config: dict, generator: Optional[torch.Generator] = None) -> KeypointNet:
+    return KeypointNet(
+        heatmaps_out=config["heatmaps_out"],
+        features=config.get("features", 128),
+        dropout=config.get("dropout", 0.1),
+        stacks=config.get("stacks", 2),
+        levels=config.get("levels", 4),
+        dims=tuple(config.get("dims", (256, 256, 384, 384, 512))),
+        mods=tuple(config.get("mods", (2, 2, 2, 2, 4))),
+        stem_features=tuple(config.get("stem_features", (128, 256))),
+        cnv_dim=config.get("cnv_dim", 256),
+        generator=generator,
+    )
+
+
+def read_flax_msgpack(data: bytes) -> dict:
+    """Decode flax's msgpack state: nested maps whose array leaves are ext
+    type 1 holding ``msgpack((shape, dtype_name, C-order bytes))``."""
+    import msgpack
+
+    def ext_hook(code, payload):
+        if code != _MSGPACK_NDARRAY:
+            raise ValueError(f"unsupported flax msgpack ext type {code}")
+        shape, dtype_name, buffer = msgpack.unpackb(payload, raw=True)
+        return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape)
+
+    return msgpack.unpackb(data, ext_hook=ext_hook, raw=False)
+
+
+def load_model(path: str):
+    """Load (model, config) from an exported artifact; the model is on the
+    CPU in float32."""
+    with open(os.path.join(path, CONFIG_NAME), "rt") as f:
+        config = json.load(f)
+    with open(os.path.join(path, PARAMS_NAME), "rb") as f:
+        variables = read_flax_msgpack(f.read())
+    model = model_from_config(config)
+    state = keypoint_net_state_dict(
+        variables, stacks=config.get("stacks", 2), levels=config.get("levels", 4),
+        mods=tuple(config.get("mods", (2, 2, 2, 2, 4))),
+    )
+    model.load_state_dict(state, strict=True)
+    return model, config
+
+
+def make_inference_fn(model: KeypointNet, dtype=torch.float32, device=None):
+    """Eval-mode reference-contract inference: NCHW frames in, (sigmoid
+    heatmaps, depth, centers) of the last stack out, float32 and contiguous.
+
+    Moves ``model`` (in place) to ``device`` and ``dtype``, channels_last,
+    eval mode. The stem runs the CUDA stem kernel on a CUDA device."""
+    if device is None:
+        device = next(model.parameters()).device
+    model.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
+
+    @torch.inference_mode()
+    def infer(frames):
+        x = torch.as_tensor(frames).to(device=device, dtype=dtype).contiguous()
+        outs = outputs_to_reference(model(x), stack=-1)
+        return tuple(t.float().contiguous() for t in outs)
+
+    return infer
+
+
+def load_inference_fn(path: str, dtype=torch.float32, quantize: str = "never", device=None):
+    """``make_inference_fn`` over an artifact. Only ``quantize="never"`` (float
+    serving) exists until int8 serving is ported."""
+    if quantize != "never":
+        raise NotImplementedError(f"quantize={quantize!r}: int8 serving is not ported yet")
+    model, _ = load_model(path)
+    return make_inference_fn(model, dtype=dtype, device=device)
