@@ -18,7 +18,24 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    (keypoints (1, 3), equidistant, 16 peaks, 20 px reject, threshold 0.5)
    through bench.py's camera chain; checks shapes and finiteness, decodes
    the same maps on the CPU for comparison, checks the stem kernel ran,
-   and prints stereo pairs/s from a warm timed loop.
+   and prints stereo pairs/s from a warm timed loop;
+6. the stereo-triangulated serve step as bench.py measures it: the same
+   model and bf16 inference function, the first 48 frames left and the last
+   48 right -> stereo_decode_triangulate (16 peaks, threshold 0.5, epipolar
+   threshold 3 px) through bench.py's camera chain for both cameras; checks
+   the stem kernel ran once per step and that every output is on the card
+   and finite; holds the card's decode and the CPU decode of the same maps
+   to each other and each to the float64 lift of its own matched pixels
+   (object_keypoints_tpu_torch.testing.compare_stereo); prints stereo
+   pairs/s, ms per step, the forward and the stereo decode alone, peak
+   memory, and one whole warm step traced on the card by torch.profiler
+   while the host clock times its parts (device busy and idle share, the
+   host's time in the forward and in the decode);
+7. a stereo scene with known geometry: numpy Gaussians at the port's
+   fisheye projections of the valve keypoints of
+   tests/test_stereo_pipeline.py, in both views at 180x320, decoded on the
+   card: one, one and three matches per channel, each within 5 cm of the
+   truth, and equal to the CPU decode and the float64 lift within 1e-4 m.
 
 Any failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON and ``{"ok": true, "device": {...}}``.
@@ -36,6 +53,7 @@ import torch
 PAIRS = 48  # bench.py's default batch
 SEED = 0
 KEYPOINT_CONFIG = (1, 3)
+CALIBRATION = "config/calibration.yaml"
 STEM_REPLACES = "object_keypoints_tpu/ops/pallas/stem_conv.py:127"
 
 
@@ -163,7 +181,7 @@ def phase_full_forward():
 
 
 def phase_serve(card):
-    from object_keypoints_tpu_torch.geometry.cameras import FisheyeCamera, load_calibration_params
+    from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
     from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
     from object_keypoints_tpu_torch.pipeline.decode import (
         CameraArrays,
@@ -171,11 +189,9 @@ def phase_serve(card):
         decode_objects_batch,
     )
     from object_keypoints_tpu_torch.serving.export import make_inference_fn
+    from object_keypoints_tpu_torch.testing import serve_rig
 
-    params = load_calibration_params("config/calibration.yaml")
-    offset = np.array([(511.0 / 720.0 * 1280.0 - 511.0) / 2.0, 0.0])  # bench.py:194
-    cam = (FisheyeCamera(params["K"], params["D"], params["image_size"])
-           .scale(511.0 / 720.0).cut(offset).scale(64.0 / 511.0))
+    cam = serve_rig(load_calibration_params(CALIBRATION)).left_camera  # bench.py's chain
     camera = CameraArrays.from_camera(cam, device="cuda")
     decode_kw = dict(keypoint_config=KEYPOINT_CONFIG, model="equidistant", max_peaks=16,
                      reject_distance=20.0, peak_threshold=0.5)
@@ -239,12 +255,191 @@ def phase_serve(card):
     return launches
 
 
+STEREO_KW = dict(max_peaks=16, peak_threshold=0.5, epipolar_threshold=3.0)
+
+
+def device_events(fn):
+    """The device operations (kernels, copies) of one call of fn, as
+    (start, end) in us on the card's clock, in order, from torch.profiler
+    tracing the card alone (CUPTI)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+
+
+def busy_us(ops):
+    """Time covered by the union of the (start, end) intervals, us."""
+    total, reach = 0.0, -float("inf")
+    for s, e in ops:
+        total += max(0.0, e - max(s, reach))
+        reach = max(reach, e)
+    return total
+
+
+def trace_step(forward, decode, n_forward_ops):
+    """One warm step, forward then decode, traced on the card while the
+    host clock times the step's parts: the host's time in the forward and
+    in the decode and its wait at the end, the step's wall time, and from
+    the trace the device's busy time and idle share of that wall time, split
+    at the end of the forward's last operation (its first n_forward_ops)."""
+    marks = []
+
+    def step():
+        marks.append(time.perf_counter())
+        heat = forward()
+        marks.append(time.perf_counter())
+        decode(heat)
+        marks.append(time.perf_counter())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    ops = device_events(step)
+    assert len(ops) > n_forward_ops, (len(ops), n_forward_ops)
+    fwd, dec = ops[:n_forward_ops], ops[n_forward_ops:]
+    wall = 1e6 * (marks[3] - marks[0])
+    fwd_end = max(e for _, e in fwd)
+    busy = busy_us(ops)
+    return {"trace_wall_ms": wall / 1e3, "trace_host_forward_ms": 1e3 * (marks[1] - marks[0]),
+            "trace_host_decode_ms": 1e3 * (marks[2] - marks[1]),
+            "trace_host_wait_ms": 1e3 * (marks[3] - marks[2]), "trace_device_ops": len(ops),
+            "trace_device_busy_ms": busy / 1e3, "trace_device_idle_share": 1.0 - busy / wall,
+            "trace_device_span_ms": (ops[-1][1] - ops[0][0]) / 1e3,
+            "trace_forward_device_span_ms": (fwd_end - ops[0][0]) / 1e3,
+            "trace_forward_device_busy_ms": busy_us(fwd) / 1e3,
+            "trace_decode_device_span_ms": (max(e for _, e in dec) - fwd_end) / 1e3,
+            "trace_decode_device_busy_ms": busy_us(dec) / 1e3}
+
+
+def phase_stereo_serve(card):
+    from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
+    from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
+    from object_keypoints_tpu_torch.pipeline.stereo import (
+        StereoDecoded,
+        StereoRigArrays,
+        stereo_decode_triangulate,
+    )
+    from object_keypoints_tpu_torch.serving.export import make_inference_fn
+    from object_keypoints_tpu_torch.testing import compare_stereo, lift_exact, serve_rig
+
+    stereo_cam = serve_rig(load_calibration_params(CALIBRATION))
+    rig = StereoRigArrays.from_stereo_camera(stereo_cam, device="cuda")
+    infer = make_inference_fn(make_model(), dtype=torch.bfloat16, device="cuda")
+    frames = torch.randn(2 * PAIRS, 3, 511, 511,
+                         generator=torch.Generator().manual_seed(SEED + 2)).to("cuda", torch.bfloat16)
+
+    def decode(heat):  # bench.py:111: the first PAIRS frames are left views
+        return stereo_decode_triangulate(heat[:PAIRS], heat[PAIRS:], rig, **STEREO_KW)
+
+    def step():
+        heat, _, _ = infer(frames)
+        return heat, decode(heat)
+
+    torch.cuda.reset_peak_memory_stats()
+    stem_conv.launches = 0  # the main path's run starts here
+    heat, decoded = step()
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        heat, decoded = step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = stem_conv.launches  # ... and ends here
+    assert launches == 3 + iters, launches
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+
+    k, m = len(KEYPOINT_CONFIG) + 1, STEREO_KW["max_peaks"]
+    shapes = dict(points_left=(PAIRS, k, m, 2), points_right=(PAIRS, k, m, 2),
+                  match_valid=(PAIRS, k, m), points_3d=(PAIRS, k, m, 3),
+                  left_valid=(PAIRS, k, m), confidence=(PAIRS, k, m))
+    for name in StereoDecoded._fields:
+        value = getattr(decoded, name)
+        assert tuple(value.shape) == shapes[name], (name, value.shape)
+        assert value.device.type == "cuda", (name, value.device)
+        if value.is_floating_point() and name != "points_3d":
+            assert torch.isfinite(value).all(), name
+    assert torch.isfinite(heat).all()
+
+    # the card's decode of every pair against the CPU decode of the same
+    # maps, and each against the float64 lift of its own matched pixels
+    rig64 = StereoRigArrays.from_stereo_camera(stereo_cam, dtype=torch.float64)
+    cpu = stereo_decode_triangulate(heat[:PAIRS].cpu(), heat[PAIRS:].cpu(),
+                                    StereoRigArrays.from_stereo_camera(stereo_cam), **STEREO_KW)
+    exact_card, exact_cpu = lift_exact(decoded, rig64), lift_exact(cpu, rig64)
+    card_vs_exact, held, no_depth = compare_stereo(decoded, exact_card, "stereo serve: card vs float64",
+                                                   atol_2d=0.0)
+    cpu_vs_exact, _, _ = compare_stereo(cpu, exact_cpu, "stereo serve: CPU vs float64", atol_2d=0.0)
+    card_vs_cpu, _, _ = compare_stereo(decoded, cpu, "stereo serve: card vs CPU", atol_2d=1e-3,
+                                       exact=exact_cpu)
+    matched_exact = exact_cpu.points_3d[cpu.match_valid].norm(dim=-1)
+    nonfinite = ~torch.isfinite(decoded.points_3d).all(-1)
+    assert not (nonfinite & ~decoded.match_valid).any(), "non-finite unmatched slot"
+
+    decode_ms = cuda_ms(lambda: decode(heat))
+    forward_ms = cuda_ms(lambda: infer(frames))
+    decode_ops = device_events(lambda: decode(heat))
+    forward_ops = device_events(lambda: infer(frames))
+    trace = trace_step(lambda: infer(frames)[0], decode, len(forward_ops))
+    log("stereo_serve", pairs=PAIRS, frames=list(frames.shape), dtype="bfloat16",
+        stereo_pairs_per_sec_triangulated=PAIRS * iters / seconds,
+        step_ms=1e3 * seconds / iters, forward_ms=forward_ms, stereo_decode_ms=decode_ms,
+        forward_device_ops=len(forward_ops), forward_device_ms=busy_us(forward_ops) / 1e3,
+        stereo_decode_device_ops=len(decode_ops), stereo_decode_device_ms=busy_us(decode_ops) / 1e3,
+        **trace, peak_mem_gib=peak_mem, matches=int(decoded.match_valid.sum()),
+        matches_within_1m=int((matched_exact < 1.0).sum()),
+        matches_beyond_3m=int((matched_exact >= 3.0).sum()),
+        matches_held_3d=held, matches_no_depth=no_depth, nonfinite_3d=int(nonfinite.sum()),
+        card_vs_float64=card_vs_exact, cpu_vs_float64=cpu_vs_exact, card_vs_cpu=card_vs_cpu,
+        stem_launches=launches, card=card,
+        tolerance="masks equal; 2D card vs CPU 1e-3 px; 3D 1e-4 m x max(1, (|p| / 1 m)^3) "
+                  "of the float64 lift, as a fraction of which the three 3D errors are given")
+    return launches
+
+
+def phase_stereo_scene():
+    from object_keypoints_tpu_torch.pipeline.stereo import StereoRigArrays, stereo_decode_triangulate
+    from object_keypoints_tpu_torch.testing import compare_stereo, lift_exact, stereo_scene
+
+    rig, heat_l, heat_r, points, channels = stereo_scene(CALIBRATION)
+    kw = dict(max_peaks=8, peak_threshold=0.5, epipolar_threshold=3.0)
+    out = stereo_decode_triangulate(torch.from_numpy(heat_l).cuda(), torch.from_numpy(heat_r).cuda(),
+                                    StereoRigArrays.from_stereo_camera(rig, device="cuda"), **kw)
+    cpu = stereo_decode_triangulate(torch.from_numpy(heat_l), torch.from_numpy(heat_r),
+                                    StereoRigArrays.from_stereo_camera(rig), **kw)
+    counts = out.match_valid.sum(-1).tolist()
+    assert counts == [1, 1, 3], counts
+    worst = 0.0
+    for c, idx in enumerate(channels):
+        for p in out.points_3d[c][out.match_valid[c]].cpu().numpy():
+            err = np.linalg.norm(points[idx] - p, axis=1).min()
+            assert err < 5e-2, (c, p, err)
+            worst = max(worst, float(err))
+    exact = lift_exact(out, StereoRigArrays.from_stereo_camera(rig, dtype=torch.float64))
+    # every scene point lies within 1.07 m: a flat 1e-4 m, as in the CPU tests
+    card_vs_exact, held, no_depth = compare_stereo(out, exact, "stereo scene: card vs float64",
+                                                   atol_2d=0.0, flat_to=3.0)
+    card_vs_cpu, _, _ = compare_stereo(out, cpu, "stereo scene: card vs CPU", atol_2d=1e-3,
+                                       flat_to=3.0)
+    assert held == 5 and no_depth == 0, (held, no_depth)
+    log("stereo_scene", size=[180, 320], matches_per_channel=counts, worst_3d_err_m=worst,
+        gate_m=5e-2, card_vs_float64=card_vs_exact, card_vs_cpu=card_vs_cpu,
+        tolerance="masks equal; 2D card vs CPU 1e-3 px; 3D 1e-4 m")
+
 def main():
     card = phase_device()
     phase_build()
     stem = phase_stem_kernel()
     phase_full_forward()
     launches = phase_serve(card)
+    launches += phase_stereo_serve(card)
+    phase_stereo_scene()
     assert "jax" not in sys.modules, "the port imported jax"
     print(json.dumps({"kernels": [{
         "name": "stem_conv", "route": "cuda",

@@ -1,13 +1,17 @@
 """object_keypoints_tpu_torch — the PyTorch/CUDA port of object_keypoints_tpu.
 
 The JAX package ``object_keypoints_tpu`` is the reference; this package
-reproduces its KeypointNet serve path on an NVIDIA H100 and keeps its module
-names, so each module here has a counterpart of the same name there:
+reproduces its two KeypointNet serve paths (depth head and
+stereo-triangulated) on an NVIDIA H100 and keeps its module names, so each
+module here has a counterpart of the same name there:
 
 models     blocks, fire hourglass, KeypointNet (NCHW)
 ops        stem_conv (CUDA kernel + plain version), decode, associate
-geometry   fisheye / radtan camera functions, calibration loading
-pipeline   decode: heatmaps -> associated 3D keypoints (batched)
+geometry   linalg, fisheye / radtan cameras and host camera classes,
+           stereo (Hartley-Sturm correction, DLT)
+pipeline   decode: heatmaps -> associated 3D keypoints (batched);
+           stereo: heatmap pairs -> matched, triangulated 3D keypoints;
+           components: the reference's host API over both
 serving    export (artifact loading, inference fn), weights (JAX -> port)
 csrc       CUDA C++ kernels, built by ops/_build.py at first use
 

@@ -1,1 +1,1 @@
-"""Camera geometry."""
+"""Camera geometry, SE3 helpers and stereo triangulation."""

@@ -1,8 +1,8 @@
-"""Association: center-offset grouping, masked k-means, capacity resolution.
+"""Association: center-offset grouping, masked k-means, capacity resolution
+and greedy epipolar matching.
 
-Counterpart of ``object_keypoints_tpu/ops/associate.py`` (the stereo
-``greedy_epipolar_match`` is not ported yet). Every function takes any
-leading batch dimensions in place of the JAX package's vmaps.
+Counterpart of ``object_keypoints_tpu/ops/associate.py``. Every function
+takes any leading batch dimensions in place of the JAX package's vmaps.
 
 Ties follow the JAX package: top-K is a stable descending sort (lower index
 first), the keep-branch compaction is a stable argsort, and ``argmin`` /
@@ -98,3 +98,30 @@ def resolve_capacity(points, mask, confidence, capacity: int):
     out = torch.where(over[..., None], resolved, kept)
     out_valid = (over | kept_valid) & (count > 0)[..., None]
     return out, out_valid
+
+
+def greedy_epipolar_match(distances, left_valid, right_valid, threshold: float = 2.0,
+                          max_matches: int = None):
+    """Greedy mutually exclusive matching on (..., L, R) distance matrices:
+    ``max_matches`` times, the globally nearest remaining pair (row-major
+    first on ties) is matched if its distance is at most ``threshold``, and
+    its row and column leave the matrix. Invalid rows and columns never
+    match. Returns (..., L) int32 right indices, -1 where unmatched."""
+    L, R = distances.shape[-2:]
+    if max_matches is None:
+        max_matches = min(L, R)
+    inf = torch.full_like(distances, torch.inf)
+    d = torch.where(left_valid[..., :, None] & right_valid[..., None, :], distances, inf)
+    assignment = torch.full(distances.shape[:-1], -1, dtype=torch.int32,
+                            device=distances.device)
+    rows = torch.arange(L, device=distances.device)
+    cols = torch.arange(R, device=distances.device)
+    for _ in range(max_matches):
+        best, flat = torch.min(d.flatten(-2), dim=-1)
+        i, j = flat // R, flat % R
+        take = (best <= threshold)[..., None]
+        hit_row = take & (rows == i[..., None])
+        hit_col = take & (cols == j[..., None])
+        assignment = torch.where(hit_row, j[..., None].to(torch.int32), assignment)
+        d = torch.where(hit_row[..., :, None] | hit_col[..., None, :], inf, d)
+    return assignment

@@ -1,1 +1,1 @@
-"""Batched object decoding."""
+"""Batched decoding (depth head and stereo) and the host components."""

@@ -63,12 +63,7 @@ def _lift(points, valid, depth_plane, camera: CameraArrays, model: str):
 
     points (N, ..., 2), valid (N, ...), depth_plane (N, H, W) -> (N, ..., 3).
     """
-    if model == "equidistant":
-        und = cam_ops.fisheye_undistort_points(points, camera.K, camera.D, P=camera.K)
-    elif model == "radtan":
-        und = cam_ops.radtan_undistort_points(points, camera.K, camera.D, P=camera.K)
-    else:
-        raise ValueError(f"unknown distortion model {model!r}")
+    und = cam_ops.undistort_points(points, camera.K, camera.D, camera.K, model)
     n, ph, pw = depth_plane.shape
     cam_h = camera.image_size[0].to(torch.int64)  # truncates, like astype(int32)
     cam_w = camera.image_size[1].to(torch.int64)

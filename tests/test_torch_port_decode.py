@@ -29,6 +29,7 @@ from object_keypoints_tpu_torch.geometry import cameras as cam  # noqa: E402
 from object_keypoints_tpu_torch.ops import associate as assoc  # noqa: E402
 from object_keypoints_tpu_torch.ops import decode  # noqa: E402
 from object_keypoints_tpu_torch.pipeline import decode as pipe  # noqa: E402
+from object_keypoints_tpu_torch.testing import bench_camera  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -44,9 +45,7 @@ def t(a):
 def camera_chain(module, calibration_file, size=SIZE):
     """Left camera scaled/cut/scaled into size x size prediction space."""
     params = module.load_calibration_params(calibration_file)
-    offset = np.array([(511.0 / 720.0 * 1280.0 - 511.0) / 2.0, 0.0])
-    return (module.FisheyeCamera(params["K"], params["D"], params["image_size"])
-            .scale(511.0 / 720.0).cut(offset).scale(size / 511.0))
+    return bench_camera(module.FisheyeCamera(params["K"], params["D"], params["image_size"]), size)
 
 
 @pytest.fixture(scope="module")

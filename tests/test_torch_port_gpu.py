@@ -8,9 +8,15 @@ so it also runs where jax is not installed:
 
 fp32 comparisons run with TF32 off (cuDNN and matmul) and atol 1e-4, the
 tolerance of the CPU parity tests. bf16 comparisons allow one output ulp,
-stated as rtol = atol = 1e-2.
+stated as rtol = atol = 1e-2. The stereo decode on the card is held to the
+CPU decode and to the float64 lift of its own pixels as
+``object_keypoints_tpu_torch.testing.compare_stereo`` states: masks equal,
+2D within 1e-3 px, 3D within 1e-4 m x max(1, (|p| / 1 m)^3).
 """
 
+import pathlib
+
+import numpy
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,6 +25,8 @@ from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet  # noqa: 
 from object_keypoints_tpu_torch.ops.stem_conv import stem_conv, stem_conv_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CALIBRATION = "config/calibration.yaml"
 
 
 @pytest.fixture
@@ -98,3 +106,99 @@ def test_tiny_keypoint_net_kernel_matches_plain_stem(cuda):
     for got, want in zip((*out.heatmaps, *out.depth, *out.centers),
                          (*ref.heatmaps, *ref.depth, *ref.centers)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_stereo_decode_on_card_matches_cpu(cuda, monkeypatch):
+    """The analytic stereo scene and seeded random maps through bench.py's
+    camera chain, decoded on the card and on the CPU."""
+    from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
+    from object_keypoints_tpu_torch.pipeline.stereo import (
+        StereoKeypointPipeline,
+        StereoRigArrays,
+        stereo_decode_triangulate,
+    )
+    from object_keypoints_tpu_torch.testing import compare_stereo, lift_exact, serve_rig, stereo_scene
+
+    monkeypatch.chdir(ROOT)
+    rig, heat_l, heat_r, _, _ = stereo_scene(CALIBRATION)
+    g = torch.Generator().manual_seed(4)
+    serve = serve_rig(load_calibration_params(CALIBRATION))
+    cases = [(rig, torch.from_numpy(heat_l), torch.from_numpy(heat_r), 8),
+             (serve, torch.rand(4, 3, 64, 64, generator=g), torch.rand(4, 3, 64, 64, generator=g), 16)]
+    for stereo_cam, left, right, max_peaks in cases:
+        kw = dict(max_peaks=max_peaks, peak_threshold=0.5, epipolar_threshold=3.0)
+        got = stereo_decode_triangulate(left.to(cuda), right.to(cuda),
+                                        StereoRigArrays.from_stereo_camera(stereo_cam, device=cuda), **kw)
+        want = stereo_decode_triangulate(left, right, StereoRigArrays.from_stereo_camera(stereo_cam), **kw)
+        assert all(t.device.type == "cuda" for t in got)
+        exact = lift_exact(want, StereoRigArrays.from_stereo_camera(stereo_cam, dtype=torch.float64))
+        _, held, _ = compare_stereo(got, want, f"max_peaks={max_peaks}", atol_2d=1e-3, exact=exact)
+        assert held > 0
+        compare_stereo(got, lift_exact(got, StereoRigArrays.from_stereo_camera(
+            stereo_cam, dtype=torch.float64)), f"max_peaks={max_peaks} vs float64", atol_2d=0.0)
+
+    # the host facade decodes where its input lies
+    facade = StereoKeypointPipeline({"keypoint_config": [1, 3]}, max_peaks=8,
+                                    epipolar_threshold=3.0)
+    facade.reset(rig)
+    on_card = facade(torch.from_numpy(heat_l).to(cuda), torch.from_numpy(heat_r).to(cuda))
+    on_cpu = facade(heat_l, heat_r)
+    assert [len(o["p_L"]) for o in on_card] == [len(o["p_L"]) for o in on_cpu] == [1, 1, 3]
+    for a, b in zip(on_card, on_cpu):
+        torch.testing.assert_close(torch.from_numpy(a["p_L"]), torch.from_numpy(b["p_L"]),
+                                   atol=1e-4, rtol=0)
+
+
+def test_components_decode_on_the_card(cuda, monkeypatch):
+    """LearnedKeypointTrackingPipeline(cuda=True) runs inference, peak
+    extraction and center association on the card, and its objects equal
+    those of the same pipeline on the CPU."""
+    from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
+    from object_keypoints_tpu_torch.ops import associate, decode
+    from object_keypoints_tpu_torch.pipeline import components
+    from object_keypoints_tpu_torch.testing import gaussian_maps, serve_rig
+
+    monkeypatch.chdir(ROOT)
+    seen = []
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            seen.append((name, args[0].device.type))
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(decode, "extract_peaks")
+    spy(associate, "assign_to_centers")
+    centers = [(20.0, 30.0), (44.0, 30.0)]
+    heat = gaussian_maps([centers, [(21.0, 27.0), (43.0, 27.5)], [(17.0, 33.0), (40.0, 34.0)]],
+                         (64, 64))
+    depth = torch.full((1, 3, 64, 64), 1.5)
+    offsets = torch.zeros(1, 2, 2, 64, 64)
+    ys, xs = torch.meshgrid(torch.arange(64.0), torch.arange(64.0), indexing="ij")
+    for cx, cy in centers:  # every pixel votes for the nearest center
+        near = (xs - cx).abs() <= 16
+        offsets[0, :, 0][:, near] = cx - (xs[near] + 0.5)
+        offsets[0, :, 1][:, near] = cy - (ys[near] + 0.5)
+
+    def model(frames):
+        assert frames.device.type == device
+        return (torch.from_numpy(heat)[None].to(frames.device), depth.to(frames.device),
+                offsets.to(frames.device))
+
+    camera = serve_rig(load_calibration_params(CALIBRATION)).left_camera
+    results = {}
+    for device in ("cuda", "cpu"):
+        seen.clear()
+        pipeline = components.LearnedKeypointTrackingPipeline(
+            model, device == "cuda", [64, 64], None, {"keypoint_config": [1, 2]}, max_peaks=8)
+        pipeline.reset(camera)
+        results[device] = pipeline(torch.zeros(1, 3, 64, 64))
+        assert sorted(set(seen)) == [("assign_to_centers", device), ("extract_peaks", device)]
+    (card, card_heat), (cpu, cpu_heat) = results["cuda"], results["cpu"]
+    assert isinstance(card_heat, numpy.ndarray) and len(card) == len(cpu) == 2
+    for a, b in zip(card, cpu):
+        for pa, pb in zip(a["p_C"], b["p_C"]):
+            torch.testing.assert_close(torch.from_numpy(pa), torch.from_numpy(pb), atol=1e-4, rtol=0)

@@ -106,9 +106,11 @@ def test_port_never_imports_jax(tmp_path):
         "import object_keypoints_tpu_torch\n"
         "from object_keypoints_tpu_torch.models import blocks, hourglass, keypoint_net\n"
         "from object_keypoints_tpu_torch.ops import _build, associate, decode, stem_conv\n"
-        "from object_keypoints_tpu_torch.geometry import cameras\n"
-        "from object_keypoints_tpu_torch.pipeline import decode\n"
+        "from object_keypoints_tpu_torch.geometry import cameras, linalg, stereo\n"
+        "from object_keypoints_tpu_torch.pipeline import components, decode\n"
+        "from object_keypoints_tpu_torch.pipeline import stereo as pipeline_stereo\n"
         "from object_keypoints_tpu_torch.serving import export, weights\n"
+        "from object_keypoints_tpu_torch import testing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'object_keypoints_tpu'))\n"
         "print(json.dumps(bad))\n"
