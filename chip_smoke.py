@@ -6,24 +6,30 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
 
 1. device and environment (nvidia-smi name and power limit, torch, CUDA);
 2. builds the CUDA kernels from ``object_keypoints_tpu_torch/csrc``;
-3. the stem kernel against its plain version: fp32 (TF32 off, atol 1e-4)
-   and bf16 (one output ulp, stated as rtol = atol = 1e-2) at
-   (16, 3, 511, 511), and bf16 at the serve step's (96, 3, 511, 511); median
-   times of the kernel, the plain version and cuDNN's bf16 conv + BN + ReLU;
+3. the two stem kernels against their plain version: the fp32 CUDA-core
+   kernel (TF32 off, atol 1e-4) at (16, 3, 511, 511), the bf16 tensor-core
+   kernel (one output ulp, stated as rtol = atol = 1e-2) at (16, 3, 511, 511)
+   and at the serve step's (96, 3, 511, 511); median times of the kernel, the
+   plain version, cuDNN's conv alone and cuDNN's conv + BN + ReLU as
+   separate ops (CUDA events around runs of back-to-back calls), each
+   kernel's bound (its bytes at 3.35 TB/s against its FLOP at the peak for
+   its type) and its share of that bound;
 4. the full-width valve KeypointNet (heatmaps_out=3, 24.95M parameters,
    weights from a seeded torch.Generator) in fp32 with TF32 off: the forward
-   with the stem kernel against the same forward with the plain stem;
+   with the stem kernel against the same forward with the plain stem; the
+   fp32 kernel launched once;
 5. the serve step as bench.py measures it, in float (bf16): 48 stereo pairs
    of 511x511 frames -> make_inference_fn -> decode_objects_batch
    (keypoints (1, 3), equidistant, 16 peaks, 20 px reject, threshold 0.5)
    through bench.py's camera chain; checks shapes and finiteness, decodes
-   the same maps on the CPU for comparison, checks the stem kernel ran,
-   and prints stereo pairs/s from a warm timed loop;
+   the same maps on the CPU for comparison, checks that every stem launch
+   went to the bf16 tensor-core kernel, and prints stereo pairs/s from a
+   warm timed loop;
 6. the stereo-triangulated serve step as bench.py measures it: the same
    model and bf16 inference function, the first 48 frames left and the last
    48 right -> stereo_decode_triangulate (16 peaks, threshold 0.5, epipolar
    threshold 3 px) through bench.py's camera chain for both cameras; checks
-   the stem kernel ran once per step and that every output is on the card
+   the bf16 stem kernel ran once per step and that every output is on the card
    and finite; holds the card's decode and the CPU decode of the same maps
    to each other and each to the float64 lift of its own matched pixels
    (object_keypoints_tpu_torch.testing.compare_stereo); prints stereo
@@ -38,7 +44,10 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    truth, and equal to the CPU decode and the float64 lift within 1e-4 m.
 
 Any failed check raises, so the exit code is non-zero. The last two lines
-are the kernels' JSON and ``{"ok": true, "device": {...}}``.
+are the kernels' JSON and ``{"ok": true, "device": {...}}``. The stem
+wrapper counts launches in all and per kernel; phases 4, 5 and 6 each set
+the counts to 0 before they run and read them after, and the kernels' line
+gives each kernel's launches from those runs.
 """
 
 import json
@@ -55,6 +64,11 @@ SEED = 0
 KEYPOINT_CONFIG = (1, 3)
 CALIBRATION = "config/calibration.yaml"
 STEM_REPLACES = "object_keypoints_tpu/ops/pallas/stem_conv.py:127"
+STEM_SOURCE = "object_keypoints_tpu_torch/csrc/stem_conv.cu"
+# one H100 SXM (NVIDIA's data sheet): HBM rate, dense peak by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+STEM_KERNELS = {torch.bfloat16: "stem_conv_bf16", torch.float32: "stem_conv_fp32"}
 
 
 def log(phase, **fields):
@@ -73,6 +87,24 @@ def cuda_ms(fn, iters=10, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, launches=10, runs=5, warmup=3):
+    """Milliseconds per call of fn() on the card: CUDA events around runs of
+    back-to-back calls, so that the host's time per call hides behind the
+    card's; the median over the runs."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -105,7 +137,7 @@ def phase_build():
     _build.load_library()
     seconds = time.perf_counter() - t0
     regs = [line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
-            if "registers" in line]
+            if any(k in line for k in ("entry function", "registers", "spill"))]
     log("build", library=lib.name, seconds=seconds, ptxas=regs)
 
 
@@ -117,6 +149,34 @@ def stem_inputs(n, dtype, gen):
     return x, w, scale, bias
 
 
+def stem_counts():
+    from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
+
+    return {"all": stem_conv.launches, "stem_conv_bf16": stem_conv.launches_bf16,
+            "stem_conv_fp32": stem_conv.launches_fp32}
+
+
+def reset_stem_counts():
+    from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
+
+    stem_conv.launches = stem_conv.launches_bf16 = stem_conv.launches_fp32 = 0
+
+
+def stem_bound(x, c_out):
+    """The least time (ms) the card could take for the stem on x: the bytes
+    the kernel must move (frames, its tap matrix, scale and bias read once,
+    the output written once) at the HBM rate, against the conv's FLOP (147
+    taps a pixel and channel) at the peak for the frames' type."""
+    n, _, h, w = x.shape
+    size = x.element_size()
+    out = n * ((h - 1) // 2 + 1) * ((w - 1) // 2 + 1) * c_out
+    taps = 192 * 128 if x.dtype == torch.bfloat16 else 147 * c_out
+    moved = x.numel() * size + out * size + taps * size + 2 * 4 * c_out
+    flop = 2.0 * out * 147
+    bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * flop / PEAK_FLOPS[x.dtype]
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", moved, flop
+
+
 def phase_stem_kernel():
     from object_keypoints_tpu_torch.ops.stem_conv import stem_conv, stem_conv_plain
 
@@ -124,27 +184,36 @@ def phase_stem_kernel():
     result = {}
     for n, dtype, atol, rtol in ((16, torch.float32, 1e-4, 0.0), (16, torch.bfloat16, 1e-2, 1e-2),
                                  (2 * PAIRS, torch.bfloat16, 1e-2, 1e-2)):
+        name = STEM_KERNELS[dtype]
         x, w, scale, bias = stem_inputs(n, dtype, gen)
+        before = stem_counts()
         out = stem_conv(x, w, scale, bias)
         torch.cuda.synchronize()
+        assert stem_counts()[name] == before[name] + 1, (name, before, stem_counts())
         assert out.shape == (n, 128, 256, 256) and out.dtype == dtype
         assert out.is_contiguous(memory_format=torch.channels_last)
-        err = check_close(f"stem {n} {dtype}", out, stem_conv_plain(x, w, scale, bias), atol, rtol)
-        ms = cuda_ms(lambda: stem_conv(x, w, scale, bias))
-        plain_ms = cuda_ms(lambda: stem_conv_plain(x, w, scale, bias))
-        # what the eager model would run without the kernel: cuDNN conv in
-        # the frames' dtype, then the folded BN and the ReLU as separate ops
-        xc, wc = x, w.to(dtype)
-        cudnn_ms = cuda_ms(lambda: torch.relu(
-            torch.nn.functional.conv2d(xc, wc, stride=2, padding=3)
+        err = check_close(f"{name} {n}", out, stem_conv_plain(x, w, scale, bias), atol, rtol)
+        ms = kernel_ms(lambda: stem_conv(x, w, scale, bias))
+        plain_ms = kernel_ms(lambda: stem_conv_plain(x, w, scale, bias), launches=3)
+        # cuDNN in the frames' dtype (TF32 off): the conv alone, one call that
+        # does less than the kernel; then what the eager model would run
+        # without the kernel, the conv, then the folded BN and the ReLU as
+        # separate ops
+        wc = w.to(dtype)
+        conv_ms = kernel_ms(lambda: torch.nn.functional.conv2d(x, wc, stride=2, padding=3))
+        cudnn_ms = kernel_ms(lambda: torch.relu(
+            torch.nn.functional.conv2d(x, wc, stride=2, padding=3)
             * scale.to(dtype)[:, None, None] + bias.to(dtype)[:, None, None]))
-        flop = 2.0 * n * 256 * 256 * 128 * 147
-        log("stem_kernel", shape=list(x.shape), dtype=str(dtype), max_abs_err=err, atol=atol,
-            rtol=rtol, ms=ms, plain_ms=plain_ms, cudnn_conv_bn_relu_ms=cudnn_ms,
-            kernel_tflops=flop / ms / 1e9)
-        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        bound_ms, bound_by, moved, flop = stem_bound(x, 128)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": conv_ms}
+        log("stem_kernel", kernel=name, shape=list(x.shape), dtype=str(dtype), atol=atol,
+            rtol=rtol, **row, cudnn_conv_bn_relu_ms=cudnn_ms, bytes_moved=moved, flop=flop,
+            bound_share=bound_ms / ms, kernel_tflops=flop / ms / 1e9,
+            hbm_tb_per_s=moved / ms / 1e9)
+        result[name] = row  # the last row of each kernel: bf16 at the serve step's shape
         del x, out
-    return result  # the last row: the serve step's shape and dtype
+    return result
 
 
 def make_model():
@@ -154,18 +223,19 @@ def make_model():
 
 
 def phase_full_forward():
-    from object_keypoints_tpu_torch.ops.stem_conv import stem_conv, stem_conv_plain
+    from object_keypoints_tpu_torch.ops.stem_conv import stem_conv_plain
 
     model = make_model()
     n_params = sum(p.numel() for p in model.parameters())
     assert round(n_params / 1e6, 2) == 24.95, n_params
     model = model.to("cuda", memory_format=torch.channels_last).eval()
     x = torch.randn(2, 3, 511, 511, generator=torch.Generator().manual_seed(SEED + 1)).cuda()
-    before = stem_conv.launches
     with torch.inference_mode():
+        reset_stem_counts()  # this path's run starts here
         out = model(x)
+        counts = stem_counts()  # ... and ends here
         ref = model(x, stem=stem_conv_plain)
-    assert stem_conv.launches == before + 1
+    assert counts == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, counts
     worst = 0.0
     for name in ("heatmaps", "depth", "centers"):
         for s, (got, want) in enumerate(zip(getattr(out, name), getattr(ref, name))):
@@ -177,12 +247,13 @@ def phase_full_forward():
             err = check_close(f"forward {name}[{s}]", got, want, atol=1e-4 * scale, rtol=1e-4)
             worst = max(worst, err / scale)
     log("full_forward", params=n_params, dtype="float32", tf32=False, shape=list(x.shape),
-        max_rel_err=worst, tolerance="atol 1e-4 x max(1, max|ref|), rtol 1e-4")
+        max_rel_err=worst, tolerance="atol 1e-4 x max(1, max|ref|), rtol 1e-4",
+        stem_launches=counts)
+    return counts
 
 
 def phase_serve(card):
     from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
-    from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
     from object_keypoints_tpu_torch.pipeline.decode import (
         CameraArrays,
         DecodedObjects,
@@ -205,7 +276,7 @@ def phase_serve(card):
         return (heat, depth, centers), decode_objects_batch(heat, depth, centers, camera, **decode_kw)
 
     torch.cuda.reset_peak_memory_stats()
-    stem_conv.launches = 0  # the main path's run starts here
+    reset_stem_counts()  # the main path's run starts here
     maps, decoded = step()
     for _ in range(2):
         step()
@@ -216,8 +287,9 @@ def phase_serve(card):
         maps, decoded = step()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = stem_conv.launches  # ... and ends here
-    assert launches == 3 + iters, launches
+    launches = stem_counts()  # ... and ends here
+    # every stem launch of the bf16 step went to the tensor-core kernel
+    assert launches == {"all": 3 + iters, "stem_conv_bf16": 3 + iters, "stem_conv_fp32": 0}, launches
 
     n, m, T, C = 2 * PAIRS, 16, len(KEYPOINT_CONFIG), max(KEYPOINT_CONFIG)
     heat, depth, centers = maps
@@ -317,7 +389,6 @@ def trace_step(forward, decode, n_forward_ops):
 
 def phase_stereo_serve(card):
     from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
-    from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
     from object_keypoints_tpu_torch.pipeline.stereo import (
         StereoDecoded,
         StereoRigArrays,
@@ -340,7 +411,7 @@ def phase_stereo_serve(card):
         return heat, decode(heat)
 
     torch.cuda.reset_peak_memory_stats()
-    stem_conv.launches = 0  # the main path's run starts here
+    reset_stem_counts()  # the main path's run starts here
     heat, decoded = step()
     for _ in range(2):
         step()
@@ -351,8 +422,8 @@ def phase_stereo_serve(card):
         heat, decoded = step()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = stem_conv.launches  # ... and ends here
-    assert launches == 3 + iters, launches
+    launches = stem_counts()  # ... and ends here
+    assert launches == {"all": 3 + iters, "stem_conv_bf16": 3 + iters, "stem_conv_fp32": 0}, launches
     peak_mem = torch.cuda.max_memory_allocated() / 2**30
 
     k, m = len(KEYPOINT_CONFIG) + 1, STEREO_KW["max_peaks"]
@@ -436,16 +507,15 @@ def main():
     card = phase_device()
     phase_build()
     stem = phase_stem_kernel()
-    phase_full_forward()
-    launches = phase_serve(card)
-    launches += phase_stereo_serve(card)
+    paths = [phase_full_forward(), phase_serve(card), phase_stereo_serve(card)]
     phase_stereo_scene()
     assert "jax" not in sys.modules, "the port imported jax"
-    print(json.dumps({"kernels": [{
-        "name": "stem_conv", "route": "cuda",
-        "source": "object_keypoints_tpu_torch/csrc/stem_conv.cu",
-        "replaces": STEM_REPLACES, "launches": launches, **stem,
-    }]}), flush=True)
+    kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
+                "launches": sum(p[name] for p in paths), **stem[name]}
+               for name in STEM_KERNELS.values()]
+    for k in kernels:
+        assert k["launches"] > 0, f"{k['name']} was not launched on its path"
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

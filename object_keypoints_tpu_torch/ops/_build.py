@@ -80,6 +80,7 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.okt_stem_conv.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    lib.okt_stem_conv.restype = ctypes.c_int
+    for fn in (lib.okt_stem_conv_fp32, lib.okt_stem_conv_bf16):
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
     return lib

@@ -75,14 +75,18 @@ def load_model(path: str):
     return model, config
 
 
-def make_inference_fn(model: KeypointNet, dtype=torch.float32, device=None):
+def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda"):
     """Eval-mode reference-contract inference: NCHW frames in, (sigmoid
     heatmaps, depth, centers) of the last stack out, float32 and contiguous.
 
     Moves ``model`` (in place) to ``device`` and ``dtype``, channels_last,
-    eval mode. The stem runs the CUDA stem kernel on a CUDA device."""
-    if device is None:
-        device = next(model.parameters()).device
+    eval mode. The stem runs the CUDA stem kernel on a CUDA device. It serves
+    on the card unless ``device="cpu"`` is asked for, and raises where a CUDA
+    device is asked for and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"make_inference_fn: device {str(device)!r} asked for, but CUDA "
+                           "is not available; pass device='cpu' to serve on the CPU")
     model.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
 
     @torch.inference_mode()
@@ -94,9 +98,10 @@ def make_inference_fn(model: KeypointNet, dtype=torch.float32, device=None):
     return infer
 
 
-def load_inference_fn(path: str, dtype=torch.float32, quantize: str = "never", device=None):
-    """``make_inference_fn`` over an artifact. Only ``quantize="never"`` (float
-    serving) exists until int8 serving is ported."""
+def load_inference_fn(path: str, dtype=torch.float32, quantize: str = "never", device="cuda"):
+    """``make_inference_fn`` over an artifact, on the card unless
+    ``device="cpu"``. Only ``quantize="never"`` (float serving) exists until
+    int8 serving is ported."""
     if quantize != "never":
         raise NotImplementedError(f"quantize={quantize!r}: int8 serving is not ported yet")
     model, _ = load_model(path)

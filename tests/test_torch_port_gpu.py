@@ -7,8 +7,9 @@ so it also runs where jax is not installed:
     python -m pytest --noconftest tests/test_torch_port_gpu.py -q
 
 fp32 comparisons run with TF32 off (cuDNN and matmul) and atol 1e-4, the
-tolerance of the CPU parity tests. bf16 comparisons allow one output ulp,
-stated as rtol = atol = 1e-2. The stereo decode on the card is held to the
+tolerance of the CPU parity tests; they go to the CUDA-core kernel. bf16
+comparisons go to the tensor-core kernel and allow one output ulp, stated as
+rtol = atol = 1e-2. The stereo decode on the card is held to the
 CPU decode and to the float64 lift of its own pixels as
 ``object_keypoints_tpu_torch.testing.compare_stereo`` states: masks equal,
 2D within 1e-3 px, 3D within 1e-4 m x max(1, (|p| / 1 m)^3).
@@ -51,22 +52,63 @@ def _stem_args(c_out, seed, device):
 def test_stem_fp32_matches_plain(cuda, size, c_out):
     g, w, scale, bias = _stem_args(c_out, size * c_out, cuda)
     x = torch.randn(3, 3, size, size, generator=g).to(cuda)
-    before = stem_conv.launches
+    before = stem_conv.launches, stem_conv.launches_fp32, stem_conv.launches_bf16
     out = stem_conv(x, w, scale, bias)
     torch.cuda.synchronize()
-    assert stem_conv.launches == before + 1
+    assert (stem_conv.launches, stem_conv.launches_fp32, stem_conv.launches_bf16) == (
+        before[0] + 1, before[1] + 1, before[2])
     assert out.shape == (3, c_out, (size + 1) // 2, (size + 1) // 2)
     assert out.is_contiguous(memory_format=torch.channels_last)
     torch.testing.assert_close(out, stem_conv_plain(x, w, scale, bias), atol=1e-4, rtol=0)
 
 
-def test_stem_bf16_within_one_ulp(cuda):
-    g, w, scale, bias = _stem_args(128, 1, cuda)
-    x = torch.randn(2, 3, 511, 511, generator=g).to(cuda, torch.bfloat16)
+def _check_bf16_kernel(x, w, scale, bias):
+    """One launch of the tensor-core kernel, within one output ulp of the
+    plain version (which rounds the taps to bf16 as the kernel does)."""
+    before = stem_conv.launches, stem_conv.launches_fp32, stem_conv.launches_bf16
     out = stem_conv(x, w, scale, bias)
-    assert out.dtype == torch.bfloat16 and out.shape == (2, 128, 256, 256)
+    torch.cuda.synchronize()
+    assert (stem_conv.launches, stem_conv.launches_fp32, stem_conv.launches_bf16) == (
+        before[0] + 1, before[1], before[2] + 1)
+    n, _, h, wd = x.shape
+    assert out.dtype == torch.bfloat16 and out.shape == (n, w.shape[0], (h + 1) // 2, (wd + 1) // 2)
+    assert out.is_contiguous(memory_format=torch.channels_last)
     torch.testing.assert_close(out.float(), stem_conv_plain(x, w, scale, bias).float(),
                                atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("size", [64, 63, 37])
+@pytest.mark.parametrize("c_out", [8, 64, 128])
+def test_stem_bf16_tensor_cores_match_plain(cuda, size, c_out):
+    g, w, scale, bias = _stem_args(c_out, 7 * size + c_out, cuda)
+    _check_bf16_kernel(torch.randn(3, 3, size, size, generator=g).to(cuda, torch.bfloat16),
+                       w, scale, bias)
+
+
+def test_stem_bf16_within_one_ulp(cuda):
+    g, w, scale, bias = _stem_args(128, 1, cuda)
+    _check_bf16_kernel(torch.randn(2, 3, 511, 511, generator=g).to(cuda, torch.bfloat16),
+                       w, scale, bias)
+
+
+def test_stem_bf16_follows_weights_written_in_place(cuda):
+    """The kernel's tap matrix is kept on the weights between calls; a write
+    to the weights must reach the next launch."""
+    g, w, scale, bias = _stem_args(64, 3, cuda)
+    x = torch.randn(2, 3, 63, 63, generator=g).to(cuda, torch.bfloat16)
+    _check_bf16_kernel(x, w, scale, bias)
+    w.mul_(-1.5)
+    _check_bf16_kernel(x, w, scale, bias)
+
+
+def test_stem_bf16_rejects_c_out_not_a_multiple_of_8(cuda):
+    _, w, scale, bias = _stem_args(12, 2, cuda)
+    frame = torch.zeros(1, 3, 16, 16, device=cuda, dtype=torch.bfloat16)
+    before = stem_conv.launches
+    with pytest.raises(ValueError, match="C % 8"):
+        stem_conv(frame, w, scale, bias)
+    assert stem_conv.launches == before
+    stem_conv(frame.float(), w, scale, bias)  # fp32 takes C % 4 == 0
 
 
 def test_stem_rejects_what_the_kernel_does_not_take(cuda):

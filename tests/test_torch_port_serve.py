@@ -98,6 +98,16 @@ def test_int8_serving_is_not_ported(artifact):
         export.load_inference_fn(artifact, quantize="auto")
 
 
+def test_serving_defaults_to_the_card(artifact, monkeypatch):
+    """With no device given, the serve entry points ask for CUDA and raise
+    where there is none, rather than serving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.load_inference_fn(artifact)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.make_inference_fn(export.load_model(artifact)[0])
+
+
 def test_port_never_imports_jax(tmp_path):
     """Import every slice module in a fresh interpreter (this process already
     has jax, from conftest.py) and check jax never came in."""

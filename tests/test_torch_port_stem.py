@@ -1,11 +1,16 @@
-"""Port parity: the stem kernel's plain version, the BN-fold stem block, the
-kernel build helper.
+"""Port parity: the stem kernels' plain version, the space-to-depth tap
+matrix the bf16 kernel multiplies by and its cache, the BN-fold stem block,
+the kernel build helper.
 
 The plain ``stem_conv`` (what the wrapper runs on a CPU tensor) is held
 against the JAX package's Pallas kernel in interpret mode (as
 tests/test_pallas.py runs it) and against ``stem_conv_reference``, at
-atol 1e-4 as in test_pallas. The CUDA kernel itself is compared with the
-plain version in tests/test_torch_port_gpu.py, which needs a card.
+atol 1e-4 as in test_pallas in fp32, and within one bf16 ulp (rtol = atol =
+1e-2) in bf16. The port's ``stem_taps`` equals the JAX tap matrix regrouped
+exactly, and the kernel's decomposition (space-to-depth, 4 row-shifted
+slabs of 48, one matmul) equals the plain conv at atol 1e-4. The CUDA
+kernels themselves are compared with the plain version in
+tests/test_torch_port_gpu.py, which needs a card.
 """
 
 import numpy as np
@@ -22,8 +27,11 @@ from object_keypoints_tpu.ops.pallas import stem_conv as jsc  # noqa: E402
 from object_keypoints_tpu_torch.models.blocks import StemConvBlock  # noqa: E402
 from object_keypoints_tpu_torch.ops import _build  # noqa: E402
 from object_keypoints_tpu_torch.ops.stem_conv import (  # noqa: E402
+    bf16_taps,
     fold_bn,
     stem_conv,
+    stem_conv_plain,
+    stem_taps,
 )
 
 torch.set_num_threads(1)
@@ -93,6 +101,116 @@ class TestStemPlainParity:
         with torch.no_grad():
             np.testing.assert_allclose((x * scale[:, None, None] + bias[:, None, None]).numpy(),
                                        bn(x).numpy(), atol=1e-6)
+
+
+def _s2d_gemm(x, w, scale, bias):
+    """The bf16 kernel's arithmetic in fp32: s2d cells (p, q, c) reading zero
+    outside the frame, for each output pixel the 4 row-shifted slabs of 48
+    contiguous values (cells x - 2 .. x + 1) concatenated to K = 192, one
+    matmul with ``stem_taps``, then the affine and ReLU."""
+    n, _, h, wd = x.shape
+    ho, wo = (h - 1) // 2 + 1, (wd - 1) // 2 + 1
+    # s2d rows -2 .. ho and cells -2 .. wo: frame rows and columns from -4
+    xp = torch.nn.functional.pad(x, (4, 2 * wo + 2 - wd, 4, 2 * ho + 2 - h))
+    s2d = xp.reshape(n, 3, ho + 3, 2, wo + 3, 2).permute(0, 2, 4, 3, 5, 1).reshape(
+        n, ho + 3, wo + 3, 12)
+    slabs = [s2d[:, u:u + ho].unfold(2, 4, 1).transpose(-1, -2).reshape(n, ho, wo, 48)
+             for u in range(4)]
+    y = torch.cat(slabs, dim=-1) @ stem_taps(w)
+    return torch.relu(y * scale + bias).permute(0, 3, 1, 2)
+
+
+class TestStemTaps:
+    @pytest.mark.parametrize("c_out", [8, 128])
+    def test_equals_jax_taps_regrouped_by_row_shift(self, c_out):
+        w7 = _stem_inputs(np.random.default_rng(c_out), 8, c_out)[1]
+        jax_taps = jsc.rearrange_stem_kernel(w7)  # (v, u * 12 + k, C)
+        regrouped = jax_taps.reshape(4, 4, 12, c_out).transpose(1, 0, 2, 3).reshape(192, c_out)
+        taps = stem_taps(torch.from_numpy(w7.transpose(3, 2, 0, 1).copy()))
+        assert taps.shape == (192, c_out)
+        np.testing.assert_array_equal(taps.numpy(), regrouped)
+        assert int((taps == 0).all(dim=1).sum()) == 45  # dy or dx would be -1
+        wide = stem_taps(torch.from_numpy(w7.transpose(3, 2, 0, 1).copy()), 128)
+        assert torch.equal(wide[:, :c_out], taps) and not wide[:, c_out:].any()
+
+    @pytest.mark.parametrize("size", [64, 63, 37])
+    @pytest.mark.parametrize("c_out", [8, 128])
+    def test_space_to_depth_gemm_matches_plain_conv(self, size, c_out):
+        rng = np.random.default_rng(3 * size + c_out)
+        x, w7, scale, bias = (torch.from_numpy(a) for a in _stem_inputs(rng, size, c_out))
+        frames, w = x.permute(0, 3, 1, 2).contiguous(), w7.permute(3, 2, 0, 1).contiguous()
+        got = _s2d_gemm(frames, w, scale, bias)
+        want = stem_conv_plain(frames, w, scale, bias)
+        assert got.shape == want.shape == (2, c_out, (size + 1) // 2, (size + 1) // 2)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+
+
+class TestBf16TapCache:
+    """The wrapper's tap matrix for the bf16 kernel is built once per weight
+    tensor and rebuilt when the weights change."""
+
+    def _weights(self):
+        w7 = _stem_inputs(np.random.default_rng(21), 8, 64)[1]
+        return torch.from_numpy(w7.transpose(3, 2, 0, 1).copy())
+
+    def test_equals_stem_taps_of_bf16_weights(self):
+        w = self._weights()
+        taps = bf16_taps(w)
+        assert taps.dtype == torch.bfloat16 and taps.shape == (192, 128) and taps.is_contiguous()
+        assert torch.equal(taps, stem_taps(w.to(torch.bfloat16), 128))
+
+    def test_built_once_per_weight_tensor(self):
+        w = self._weights()
+        assert bf16_taps(w) is bf16_taps(w)
+        assert bf16_taps(w.clone()) is not bf16_taps(w)
+
+    @pytest.mark.parametrize("change", ["in_place", "new_data", "dtype"])
+    def test_rebuilt_when_the_weights_change(self, change):
+        w = torch.nn.Parameter(self._weights())
+        first = bf16_taps(w)
+        with torch.no_grad():
+            if change == "in_place":
+                w.mul_(2)
+            elif change == "new_data":
+                w.data = w.data * 2
+            else:
+                w.data = w.data.to(torch.bfloat16)
+        again = bf16_taps(w)
+        assert again is not first
+        assert torch.equal(again, stem_taps(w.detach().to(torch.bfloat16), 128))
+
+    def test_inference_tensor_is_not_cached(self):
+        with torch.inference_mode():
+            w = self._weights() * 1
+            assert w.is_inference()
+            first = bf16_taps(w)
+            w.mul_(2)
+            assert torch.equal(bf16_taps(w), stem_taps(w.to(torch.bfloat16), 128))
+            assert not torch.equal(bf16_taps(w), first)
+
+
+class TestStemPlainBf16:
+    @pytest.mark.parametrize("size", [64, 63])
+    def test_within_one_ulp_of_pallas_interpret(self, size):
+        """bf16 frames: the plain version (taps rounded to bf16, fp32 sums,
+        one rounding) against the Pallas kernel run in bf16 as
+        stem_conv_pallas_from_frame runs it (taps cast to the frames' dtype)."""
+        rng = np.random.default_rng(11 + size)
+        x, w7, scale, bias = _stem_inputs(rng, size, 128)
+        xb = jnp.asarray(x, jnp.bfloat16)
+        xp = jnp.pad(xb, ((0, 0), (0, size % 2), (0, size % 2), (0, 0)))
+        taps = jnp.asarray(jsc.rearrange_stem_kernel(w7)).astype(jnp.bfloat16)
+        pallas = jsc.fused_stem_conv(jsc.space_to_depth(xp), taps, jnp.asarray(scale),
+                                     jnp.asarray(bias), rows_per_strip=8, interpret=True)
+        pallas = np.asarray(pallas.astype(jnp.float32))
+
+        frames = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).to(torch.bfloat16)
+        out = stem_conv(frames, torch.from_numpy(w7.transpose(3, 2, 0, 1).copy()),
+                        torch.from_numpy(scale), torch.from_numpy(bias))
+        assert out.dtype == torch.bfloat16
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        got = out.float().numpy().transpose(0, 2, 3, 1)
+        np.testing.assert_allclose(got, pallas, rtol=1e-2, atol=1e-2)
 
 
 class TestStemBlockParity:
