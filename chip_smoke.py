@@ -7,7 +7,8 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
 1. device and environment (nvidia-smi name and power limit, torch, CUDA);
 2. builds the CUDA kernels from ``object_keypoints_tpu_torch/csrc``;
 3. the two stem kernels against their plain version: the fp32 CUDA-core
-   kernel (TF32 off, atol 1e-4) at (16, 3, 511, 511), the bf16 tensor-core
+   kernel (TF32 off, atol 1e-4) at (16, 3, 511, 511) and at the eval
+   batch's (8, 3, 511, 511), the bf16 tensor-core
    kernel (one output ulp, stated as rtol = atol = 1e-2) at (16, 3, 511, 511)
    and at the serve step's (96, 3, 511, 511); median times of the kernel, the
    plain version, cuDNN's conv alone and cuDNN's conv + BN + ReLU as
@@ -41,25 +42,44 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    fisheye projections of the valve keypoints of
    tests/test_stereo_pipeline.py, in both views at 180x320, decoded on the
    card: one, one and three matches per channel, each within 5 cm of the
-   truth, and equal to the CPU decode and the float64 lift within 1e-4 m.
+   truth, and equal to the CPU decode and the float64 lift within 1e-4 m;
+8. the evaluation path (evaluation.evaluate_sequence_fast, the batched path
+   of the eval CLI) on a synthetic valve sequence of 48 frames of 720x1280
+   (config/calibration.yaml, keypoints (1, 3), seeded), held in memory: the
+   card's machine has no h5py, so the poses and frames are handed to the
+   dataset directly and go through the same per-frame code (projection,
+   resize/crop) as frames read from files; the CLI is not run here. (a)
+   ground truth: targets rendered and decoded on the card, the summary equal
+   to the same run on the CPU and under 5 cm mean error; (b) learned, batch
+   8: the full-width valve KeypointNet with seeded weights, written by
+   export_model and read back by load_inference_fn in float32, launching the
+   fp32 stem kernel once a batch and the bf16 one never, outputs finite on
+   the card, one batch's decode equal to the CPU decode of the same maps;
+   prints frames/s of both, the host's prefix ms per frame, the forward's,
+   the decode's and Results.add's ms per batch, peak memory, and the
+   device's busy share of one more run of each, traced on the card.
 
 Any failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON and ``{"ok": true, "device": {...}}``. The stem
-wrapper counts launches in all and per kernel; phases 4, 5 and 6 each set
-the counts to 0 before they run and read them after, and the kernels' line
-gives each kernel's launches from those runs.
+wrapper counts launches in all and per kernel; phases 4, 5, 6 and 8 each
+set the counts to 0 before they run and read them after, and the kernels'
+line gives each kernel's launches from those runs.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 PAIRS = 48  # bench.py's default batch
+EVAL_FRAMES = 48
+EVAL_BATCH = 8  # scripts/eval_model.py's --batch default
 SEED = 0
 KEYPOINT_CONFIG = (1, 3)
 CALIBRATION = "config/calibration.yaml"
@@ -182,7 +202,8 @@ def phase_stem_kernel():
 
     gen = torch.Generator().manual_seed(SEED)
     result = {}
-    for n, dtype, atol, rtol in ((16, torch.float32, 1e-4, 0.0), (16, torch.bfloat16, 1e-2, 1e-2),
+    for n, dtype, atol, rtol in ((16, torch.float32, 1e-4, 0.0), (EVAL_BATCH, torch.float32, 1e-4, 0.0),
+                                 (16, torch.bfloat16, 1e-2, 1e-2),
                                  (2 * PAIRS, torch.bfloat16, 1e-2, 1e-2)):
         name = STEM_KERNELS[dtype]
         x, w, scale, bias = stem_inputs(n, dtype, gen)
@@ -211,7 +232,7 @@ def phase_stem_kernel():
             rtol=rtol, **row, cudnn_conv_bn_relu_ms=cudnn_ms, bytes_moved=moved, flop=flop,
             bound_share=bound_ms / ms, kernel_tflops=flop / ms / 1e9,
             hbm_tb_per_s=moved / ms / 1e9)
-        result[name] = row  # the last row of each kernel: bf16 at the serve step's shape
+        result[name] = row  # each kernel's last row: the eval batch (fp32), the serve step (bf16)
         del x, out
     return result
 
@@ -250,6 +271,27 @@ def phase_full_forward():
         max_rel_err=worst, tolerance="atol 1e-4 x max(1, max|ref|), rtol 1e-4",
         stem_launches=counts)
     return counts
+
+
+def check_decode_on_cpu(what, decoded, maps, cam, decode_kw):
+    """The card's decode of the first len(maps[0]) frames against the CPU
+    decode of the same maps: masks equal, 2D within 1e-4 px, 3D within
+    1e-5 m."""
+    from object_keypoints_tpu_torch.pipeline.decode import (
+        CameraArrays,
+        DecodedObjects,
+        decode_objects_batch,
+    )
+
+    k = len(maps[0])
+    cpu = decode_objects_batch(*(t.cpu() for t in maps), CameraArrays.from_camera(cam), **decode_kw)
+    for name in DecodedObjects._fields:
+        got, want = getattr(decoded, name)[:k].cpu(), getattr(cpu, name)
+        if got.is_floating_point():
+            tol = 1e-5 if name.endswith("p3d") else 1e-4
+            check_close(f"{what} decode {name}", got, want, atol=tol, rtol=0)
+        else:
+            assert torch.equal(got, want), (what, name)
 
 
 def phase_serve(card):
@@ -309,15 +351,7 @@ def phase_serve(card):
 
     # the decode on the card against the same decode on the CPU, same maps
     k = 8
-    cpu = decode_objects_batch(*(t[:k].cpu() for t in maps),
-                               CameraArrays.from_camera(cam), **decode_kw)
-    for name in DecodedObjects._fields:
-        got, want = getattr(decoded, name)[:k].cpu(), getattr(cpu, name)
-        if got.is_floating_point():
-            tol = 1e-5 if name.endswith("p3d") else 1e-4
-            check_close(f"decode {name}", got, want, atol=tol, rtol=0)
-        else:
-            assert torch.equal(got, want), name
+    check_decode_on_cpu("serve", decoded, [t[:k] for t in maps], cam, decode_kw)
 
     pairs_per_sec = PAIRS * iters / seconds
     log("serve", pairs=PAIRS, frames=list(frames.shape), dtype="bfloat16",
@@ -503,12 +537,150 @@ def phase_stereo_scene():
         gate_m=5e-2, card_vs_float64=card_vs_exact, card_vs_cpu=card_vs_cpu,
         tolerance="masks equal; 2D card vs CPU 1e-3 px; 3D 1e-4 m")
 
+def host_ms(fn):
+    """fn()'s result and its milliseconds on the host clock, the card
+    synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def traced_busy_share(fn):
+    """fn() once, traced on the card (CUPTI) while the host clock times it:
+    (share of the wall time the device was busy, device operations, wall
+    ms)."""
+    marks = []
+
+    def timed():
+        marks.append(time.perf_counter())
+        fn()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    ops = device_events(timed)
+    wall_us = 1e6 * (marks[1] - marks[0])
+    return busy_us(ops) / wall_us, len(ops), wall_us / 1e3
+
+
+def check_summary(what, got, want):
+    """Eval summaries: n_points and missing_pct equal, cm within 1e-3 cm."""
+    assert got["n_points"] == want["n_points"] > 0, (what, got, want)
+    assert got["missing_pct"] == want["missing_pct"], (what, got, want)
+    worst = 0.0
+    for key in ("mean_cm", "mean_xy_cm", "std_cm", "p25_cm", "p75_cm"):
+        worst = max(worst, abs(got[key] - want[key]))
+    assert worst <= 1e-3, (what, worst, got, want)
+    return worst
+
+
+def phase_eval(card):
+    from object_keypoints_tpu_torch import evaluation
+    from object_keypoints_tpu_torch.pipeline.decode import CameraArrays, decode_objects_batch
+    from object_keypoints_tpu_torch.serving.export import export_model, load_inference_fn
+    from object_keypoints_tpu_torch.testing import synthetic_sequence_in_memory
+
+    config = {"keypoint_config": list(KEYPOINT_CONFIG)}
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_dir = f"{tmp}/seq"
+        t0 = time.perf_counter()
+        recording = synthetic_sequence_in_memory(seq_dir, CALIBRATION, KEYPOINT_CONFIG,
+                                                 n_frames=EVAL_FRAMES, seed=SEED)
+        generate_s = time.perf_counter() - t0
+        assert len(recording[1]) == EVAL_FRAMES and recording[1][0].shape == (720, 1280, 3)
+        seq = evaluation.Sequence(seq_dir, config, device="cuda", recording=recording)
+        seq_cpu = evaluation.Sequence(seq_dir, config, device="cpu", recording=recording)
+
+        # the host's per-frame prefix: pose inverse, projection, resize/crop
+        t0 = time.perf_counter()
+        entries = list(seq.dataset.iter_prefix())
+        prefix_ms = 1e3 * (time.perf_counter() - t0) / len(entries)
+
+        def run(sequence, inference_fn=None, ground_truth=True):
+            return evaluation.evaluate_sequence_fast(sequence, inference_fn, config,
+                                                     batch_size=EVAL_BATCH,
+                                                     ground_truth=ground_truth)
+
+        # (a) ground truth: targets rendered and decoded on the card
+        gt, gt_ms = host_ms(lambda: run(seq))
+        gt_summary = gt.summary()
+        gt_cpu_summary = run(seq_cpu).summary()
+        gt_vs_cpu = check_summary("ground truth: card vs CPU", gt_summary, gt_cpu_summary)
+        assert gt_summary["mean_cm"] < 5.0, gt_summary
+
+        # (b) learned, fp32: the full-width model through an exported artifact
+        model = make_model()
+        assert round(sum(p.numel() for p in model.parameters()) / 1e6, 2) == 24.95
+        export_model(f"{tmp}/artifact", {"heatmaps_out": 3, "input_size": 511, **config}, model)
+        infer = load_inference_fn(f"{tmp}/artifact", device="cuda")
+        batch = evaluation.batch_frames(entries[:EVAL_BATCH], "cuda")
+        maps = infer(batch)  # warm-up, and the batch the checks below read
+        torch.cuda.reset_peak_memory_stats()
+        reset_stem_counts()  # the main path's run starts here
+        learned, learned_ms = host_ms(lambda: run(seq, infer, ground_truth=False))
+        launches = stem_counts()  # ... and ends here
+        peak_mem = torch.cuda.max_memory_allocated() / 2**30
+        batches = math.ceil(EVAL_FRAMES / EVAL_BATCH)
+        assert launches == {"all": batches, "stem_conv_bf16": 0, "stem_conv_fp32": batches}, launches
+        learned_summary = learned.summary()
+        assert len(learned.gt_keypoints) == EVAL_FRAMES
+
+    assert [tuple(t.shape) for t in maps] == [(EVAL_BATCH, 3, 64, 64), (EVAL_BATCH, 3, 64, 64),
+                                              (EVAL_BATCH, 2, 2, 64, 64)]
+    for t in maps:
+        assert t.device.type == "cuda" and t.dtype == torch.float32 and torch.isfinite(t).all()
+    cam = seq.camera_small
+    decode_kw = dict(keypoint_config=KEYPOINT_CONFIG, model=cam.distortion_model, max_peaks=16)
+    camera = CameraArrays.from_camera(cam, device="cuda")
+    decoded = decode_objects_batch(*maps, camera, **decode_kw)
+    check_decode_on_cpu("eval", decoded, maps, cam, decode_kw)
+    for t in decoded:
+        assert t.device.type == "cuda"
+        if t.is_floating_point():
+            assert torch.isfinite(t).all()
+
+    # per batch: the forward and the decode by CUDA events, the copy to the
+    # host and Results.add on the host clock
+    forward_ms = cuda_ms(lambda: infer(batch))
+    decode_ms = cuda_ms(lambda: decode_objects_batch(*maps, camera, **decode_kw))
+    host, to_host_ms = host_ms(lambda: evaluation.decoded_to_host(decoded))
+    results = evaluation.Results()
+    results.set_calibration(cam)
+    t0 = time.perf_counter()
+    for k, entry in enumerate(entries[:EVAL_BATCH]):
+        results.add(entry[3], evaluation.decoded_to_objects(host, k, KEYPOINT_CONFIG), seq.world_points)
+    add_ms = 1e3 * (time.perf_counter() - t0)
+    gt_busy, gt_ops, gt_trace_ms = traced_busy_share(lambda: run(seq))
+    learned_busy, learned_ops, learned_trace_ms = traced_busy_share(
+        lambda: run(seq, infer, ground_truth=False))
+    log("eval", frames=EVAL_FRAMES, frame_size=[720, 1280], batch=EVAL_BATCH,
+        source="synthetic recording in memory (no h5py on this machine); the CLI is not run",
+        generate_s=generate_s,
+        ground_truth_frames_per_sec=1e3 * EVAL_FRAMES / gt_ms, ground_truth_summary=gt_summary,
+        ground_truth_card_vs_cpu_cm=gt_vs_cpu,
+        learned_frames_per_sec=1e3 * EVAL_FRAMES / learned_ms, learned_summary=learned_summary,
+        learned_dtype="float32", prefix_host_ms_per_frame=prefix_ms,
+        forward_ms_per_batch=forward_ms, decode_ms_per_batch=decode_ms,
+        decoded_to_host_ms_per_batch=to_host_ms, results_add_ms_per_batch=add_ms,
+        ground_truth_trace=dict(device_busy_share=gt_busy, device_ops=gt_ops, wall_ms=gt_trace_ms),
+        learned_trace=dict(device_busy_share=learned_busy, device_ops=learned_ops,
+                           wall_ms=learned_trace_ms),
+        peak_mem_gib=peak_mem, stem_launches=launches,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32, card=card,
+        tolerance="summaries: n_points, missing_pct equal, cm within 1e-3; decode: masks equal, "
+                  "1e-4 px, 1e-5 m")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
     stem = phase_stem_kernel()
     paths = [phase_full_forward(), phase_serve(card), phase_stereo_serve(card)]
     phase_stereo_scene()
+    paths.append(phase_eval(card))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

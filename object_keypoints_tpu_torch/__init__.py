@@ -2,18 +2,23 @@
 
 The JAX package ``object_keypoints_tpu`` is the reference; this package
 reproduces its two KeypointNet serve paths (depth head and
-stereo-triangulated) on an NVIDIA H100 and keeps its module names, so each
-module here has a counterpart of the same name there:
+stereo-triangulated) and its evaluation path on an NVIDIA H100 and keeps its
+module names, so each module here has a counterpart of the same name there:
 
-models     blocks, fire hourglass, KeypointNet (NCHW)
-ops        stem_conv (CUDA kernel + plain version), decode, associate
-geometry   linalg, fisheye / radtan cameras and host camera classes,
-           stereo (Hartley-Sturm correction, DLT)
-pipeline   decode: heatmaps -> associated 3D keypoints (batched);
-           stereo: heatmap pairs -> matched, triangulated 3D keypoints;
-           components: the reference's host API over both
-serving    export (artifact loading, inference fn), weights (JAX -> port)
-csrc       CUDA C++ kernels, built by ops/_build.py at first use
+models      blocks, fire hourglass, KeypointNet (NCHW)
+ops         stem_conv (CUDA kernel + plain version), decode, associate
+geometry    linalg, fisheye / radtan cameras and host camera classes,
+            stereo (Hartley-Sturm correction, DLT)
+pipeline    decode: heatmaps -> associated 3D keypoints (batched);
+            stereo: heatmap pairs -> matched, triangulated 3D keypoints;
+            components: the reference's host API over both
+serving     export (artifacts both ways, inference fn), weights (JAX <-> port)
+data        scene (SceneDataset), targets (batched target rendering),
+            augment, encode (SequenceWriter), synthetic sequences
+evaluation  Sequence, Results, batched and per-frame sequence evaluation
+cli         eval_model, the eval CLI
+utils       vis: heatmap overlays, live viewer
+csrc        CUDA C++ kernels, built by ops/_build.py at first use
 
 It imports torch and never jax, flax or object_keypoints_tpu.
 """

@@ -5,12 +5,15 @@ directory the JAX package's ``export_model`` writes:
 
     config.json    — model hyperparameters + keypoint config
     params.msgpack — flax params + batch_stats (float32), flax msgpack format
+    quant.json     — int8 activation scales (optional)
 
 ``load_model`` reads it with ``msgpack`` alone (no flax) and loads the
-weights through ``serving.weights``. ``make_inference_fn`` keeps the
-reference contract: frames (N, 3, H, W) in; sigmoid heatmaps (N, K, h, w),
-depth (N, K, h, w) and center offsets (N, T, 2, h, w) out, all float32.
-int8 serving is not ported yet.
+weights through ``serving.weights``; ``export_model`` writes one from a port
+model, in the same format, for either package to read. ``make_inference_fn``
+keeps the reference contract: frames (N, 3, H, W) in; sigmoid heatmaps (N,
+K, h, w), depth (N, K, h, w) and center offsets (N, T, 2, h, w) out, all
+float32. int8 serving is not ported yet: an artifact with quant.json is
+refused rather than served in float.
 """
 
 from __future__ import annotations
@@ -23,10 +26,14 @@ import numpy as np
 import torch
 
 from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet, outputs_to_reference
-from object_keypoints_tpu_torch.serving.weights import keypoint_net_state_dict
+from object_keypoints_tpu_torch.serving.weights import (
+    keypoint_net_state_dict,
+    keypoint_net_variables,
+)
 
 CONFIG_NAME = "config.json"
 PARAMS_NAME = "params.msgpack"
+QUANT_NAME = "quant.json"
 _MSGPACK_NDARRAY = 1  # flax.serialization._MsgpackExtType.ndarray
 
 
@@ -59,6 +66,42 @@ def read_flax_msgpack(data: bytes) -> dict:
     return msgpack.unpackb(data, ext_hook=ext_hook, raw=False)
 
 
+def write_flax_msgpack(tree: dict) -> bytes:
+    """Encode nested dicts of numpy arrays as flax's msgpack state (the
+    inverse of ``read_flax_msgpack``)."""
+    import msgpack
+
+    def ext(x):
+        if isinstance(x, np.ndarray):
+            payload = msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True)
+            return msgpack.ExtType(_MSGPACK_NDARRAY, payload)
+        raise TypeError(f"cannot encode {type(x).__name__} as a flax msgpack leaf")
+
+    return msgpack.packb(tree, default=ext, strict_types=True)
+
+
+def _architecture(config: dict):
+    return dict(stacks=config.get("stacks", 2), levels=config.get("levels", 4),
+                mods=tuple(config.get("mods", (2, 2, 2, 2, 4))))
+
+
+def export_model(path: str, config: dict, model) -> None:
+    """Write the serving artifact of ``model`` (a port KeypointNet or its
+    state_dict) with ``config``: config.json and params.msgpack as the JAX
+    package's ``export_model`` writes them, float32. The weights go through
+    a temporary file and ``os.replace``, so a killed process leaves no
+    truncated artifact."""
+    state = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    variables = keypoint_net_variables(state, **_architecture(config))
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, CONFIG_NAME), "wt") as f:
+        json.dump(config, f, indent=2)
+    tmp = os.path.join(path, PARAMS_NAME + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(write_flax_msgpack(variables))
+    os.replace(tmp, os.path.join(path, PARAMS_NAME))
+
+
 def load_model(path: str):
     """Load (model, config) from an exported artifact; the model is on the
     CPU in float32."""
@@ -67,10 +110,7 @@ def load_model(path: str):
     with open(os.path.join(path, PARAMS_NAME), "rb") as f:
         variables = read_flax_msgpack(f.read())
     model = model_from_config(config)
-    state = keypoint_net_state_dict(
-        variables, stacks=config.get("stacks", 2), levels=config.get("levels", 4),
-        mods=tuple(config.get("mods", (2, 2, 2, 2, 4))),
-    )
+    state = keypoint_net_state_dict(variables, **_architecture(config))
     model.load_state_dict(state, strict=True)
     return model, config
 
@@ -98,11 +138,17 @@ def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda"):
     return infer
 
 
-def load_inference_fn(path: str, dtype=torch.float32, quantize: str = "never", device="cuda"):
+def load_inference_fn(path: str, dtype=torch.float32, quantize: str = "auto", device="cuda"):
     """``make_inference_fn`` over an artifact, on the card unless
-    ``device="cpu"``. Only ``quantize="never"`` (float serving) exists until
-    int8 serving is ported."""
-    if quantize != "never":
-        raise NotImplementedError(f"quantize={quantize!r}: int8 serving is not ported yet")
+    ``device="cpu"``. ``quantize`` as in the JAX package: "auto" serves int8
+    if and only if the artifact holds quant.json, "require" int8, "never"
+    float. Until int8 serving is ported, every case that would serve int8
+    raises ``NotImplementedError``."""
+    if quantize not in ("auto", "never", "require"):
+        raise ValueError(f"quantize={quantize!r}: expected 'auto', 'never' or 'require'")
+    if quantize == "require" or (quantize == "auto"
+                                 and os.path.exists(os.path.join(path, QUANT_NAME))):
+        raise NotImplementedError(f"quantize={quantize!r} on {path}: int8 serving is not "
+                                  "ported yet")
     model, _ = load_model(path)
     return make_inference_fn(model, dtype=dtype, device=device)

@@ -1,15 +1,18 @@
-"""JAX variables -> port state_dict.
+"""JAX variables <-> port state_dict.
 
-The inverse of ``object_keypoints_tpu.serving.torch_import.import_keypoint_net``:
-it walks the same name correspondence the other way, so a JAX KeypointNet's
-``{"params", "batch_stats"}`` (nested dicts of numpy arrays, e.g. from an
-exported artifact) load into the port's ``KeypointNet`` with ``strict=True``.
+One walk over the KeypointNet records which flax leaf each port state_dict
+entry is, and both directions follow it. ``keypoint_net_state_dict`` is the
+inverse of ``object_keypoints_tpu.serving.torch_import.import_keypoint_net``:
+a JAX KeypointNet's ``{"params", "batch_stats"}`` (nested dicts of numpy
+arrays, e.g. from an exported artifact) load into the port's
+``KeypointNet`` with ``strict=True``. ``keypoint_net_variables`` goes back,
+so the port can write an artifact the JAX package reads.
 
 Layouts: a flax conv kernel (kH, kW, I[/g], O) becomes (O, I[/g], kH, kW);
 a flax ConvTranspose kernel (kH, kW, I, O) is spatially flipped against
 torch's and becomes (I, O, kH, kW) un-flipped; BatchNorm scale/bias/mean/var
-become weight/bias/running_mean/running_var. The values are copied
-bit for bit.
+become weight/bias/running_mean/running_var. The values are copied bit for
+bit both ways.
 """
 
 from __future__ import annotations
@@ -30,36 +33,50 @@ def conv_transpose_weight(kernel) -> np.ndarray:
     return np.asarray(kernel)[::-1, ::-1].transpose(2, 3, 0, 1)
 
 
-class _Exporter:
-    def __init__(self, variables: Mapping):
-        self.params = variables["params"]
-        self.stats = variables.get("batch_stats", {})
-        self.sd: Dict[str, np.ndarray] = {}
+def conv_kernel(weight) -> np.ndarray:
+    """(O, I, kH, kW) -> (kH, kW, I, O), the inverse of ``conv_weight``."""
+    return np.asarray(weight).transpose(2, 3, 1, 0)
 
-    @staticmethod
-    def _get(tree: Mapping, path: Sequence[str]):
-        for p in path:
-            tree = tree[p]
-        return tree
+
+def conv_transpose_kernel(weight) -> np.ndarray:
+    """(I, O, kH, kW) -> flipped (kH, kW, I, O), the inverse of
+    ``conv_transpose_weight``."""
+    return np.asarray(weight).transpose(2, 3, 0, 1)[::-1, ::-1]
+
+
+# leaf kind -> (flax -> port, port -> flax)
+_LAYOUTS = {
+    "conv": (conv_weight, conv_kernel),
+    "conv_t": (conv_transpose_weight, conv_transpose_kernel),
+    "same": (np.asarray, np.asarray),
+}
+
+
+class _NameMap:
+    """Walks the model, recording each state_dict entry as (port key, flax
+    collection or None for num_batches_tracked, flax path, layout kind)."""
+
+    def __init__(self):
+        self.entries = []
+
+    def _add(self, key, collection, path, kind="same"):
+        self.entries.append((key, collection, tuple(path), kind))
 
     def conv(self, key: str, fp: Sequence[str], bias_key: str = None):
-        node = self._get(self.params, fp)
-        self.sd[key] = conv_weight(node["kernel"])
+        self._add(key, "params", (*fp, "kernel"), "conv")
         if bias_key is not None:
-            self.sd[bias_key] = np.asarray(node["bias"])
+            self._add(bias_key, "params", (*fp, "bias"))
 
     def conv_t(self, tp: str, fp: Sequence[str]):
-        node = self._get(self.params, fp)
-        self.sd[f"{tp}.weight"] = conv_transpose_weight(node["kernel"])
-        self.sd[f"{tp}.bias"] = np.asarray(node["bias"])
+        self._add(f"{tp}.weight", "params", (*fp, "kernel"), "conv_t")
+        self._add(f"{tp}.bias", "params", (*fp, "bias"))
 
     def bn(self, tp: str, fp: Sequence[str]):
-        p, s = self._get(self.params, fp), self._get(self.stats, fp)
-        self.sd[f"{tp}.weight"] = np.asarray(p["scale"])
-        self.sd[f"{tp}.bias"] = np.asarray(p["bias"])
-        self.sd[f"{tp}.running_mean"] = np.asarray(s["mean"])
-        self.sd[f"{tp}.running_var"] = np.asarray(s["var"])
-        self.sd[f"{tp}.num_batches_tracked"] = np.zeros((), np.int64)
+        self._add(f"{tp}.weight", "params", (*fp, "scale"))
+        self._add(f"{tp}.bias", "params", (*fp, "bias"))
+        self._add(f"{tp}.running_mean", "batch_stats", (*fp, "mean"))
+        self._add(f"{tp}.running_var", "batch_stats", (*fp, "var"))
+        self._add(f"{tp}.num_batches_tracked", None, ())
 
     def convolution(self, tp: str, fp):
         self.conv(f"{tp}.conv.weight", (*fp, "Conv_0"))
@@ -104,22 +121,74 @@ class _Exporter:
             self.fire(f"{tp}.low3.{i}", (*fp, f"low3_{i}"))
         self.conv_t(f"{tp}.up2", (*fp, "up2"))
 
+    def keypoint_net(self, stacks: int, levels: int, mods: Sequence[int]):
+        self.convolution("backbone.pre.0", ("backbone", "pre_conv"))
+        self.residual("backbone.pre.1", ("backbone", "pre_res1"), has_skip=True)
+        self.residual("backbone.pre.2", ("backbone", "pre_res2"), has_skip=True)
+        for s in range(stacks):
+            self.hg_module(f"backbone.hgs.{s}", ("backbone", f"hg_{s}"), levels, tuple(mods))
+            self.convolution(f"backbone.cnvs.{s}", ("backbone", f"cnv_{s}"))
+            if s < stacks - 1:
+                self.residual(f"backbone.inters.{s}", ("backbone", f"inter_res_{s}"),
+                              has_skip=False)
+                self.merge_mod(f"backbone.inters_.{s}", ("backbone", f"inter_merge_{s}"))
+                self.merge_mod(f"backbone.cnvs_.{s}", ("backbone", f"cnv_merge_{s}"))
+        for head in ("heatmap", "depth", "center"):
+            for s in range(stacks):
+                self.pred_module(f"{head}_head.output_head{s + 1}", (f"{head}_head_{s}",))
+        return self
+
+
+class _Exporter(_NameMap):
+    """The walk over JAX ``variables``; ``sd`` holds the port state_dict
+    (numpy) of every entry walked so far."""
+
+    def __init__(self, variables: Mapping):
+        super().__init__()
+        self.variables = {"params": variables["params"],
+                          "batch_stats": variables.get("batch_stats", {})}
+
+    @property
+    def sd(self) -> Dict[str, np.ndarray]:
+        out = {}
+        for key, collection, path, kind in self.entries:
+            if collection is None:
+                out[key] = np.zeros((), np.int64)
+                continue
+            node = self.variables[collection]
+            for p in path:
+                node = node[p]
+            out[key] = _LAYOUTS[kind][0](node)
+        return out
+
 
 def keypoint_net_state_dict(variables: Mapping, stacks: int = 2, levels: int = 4,
                             mods: Sequence[int] = (2, 2, 2, 2, 4)) -> Dict[str, torch.Tensor]:
     """JAX KeypointNet variables -> a state_dict for the port's KeypointNet."""
-    ex = _Exporter(variables)
-    ex.convolution("backbone.pre.0", ("backbone", "pre_conv"))
-    ex.residual("backbone.pre.1", ("backbone", "pre_res1"), has_skip=True)
-    ex.residual("backbone.pre.2", ("backbone", "pre_res2"), has_skip=True)
-    for s in range(stacks):
-        ex.hg_module(f"backbone.hgs.{s}", ("backbone", f"hg_{s}"), levels, tuple(mods))
-        ex.convolution(f"backbone.cnvs.{s}", ("backbone", f"cnv_{s}"))
-        if s < stacks - 1:
-            ex.residual(f"backbone.inters.{s}", ("backbone", f"inter_res_{s}"), has_skip=False)
-            ex.merge_mod(f"backbone.inters_.{s}", ("backbone", f"inter_merge_{s}"))
-            ex.merge_mod(f"backbone.cnvs_.{s}", ("backbone", f"cnv_merge_{s}"))
-    for head in ("heatmap", "depth", "center"):
-        for s in range(stacks):
-            ex.pred_module(f"{head}_head.output_head{s + 1}", (f"{head}_head_{s}",))
-    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in ex.sd.items()}
+    sd = _Exporter(variables).keypoint_net(stacks, levels, mods).sd
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def keypoint_net_variables(state_dict: Mapping, stacks: int = 2, levels: int = 4,
+                           mods: Sequence[int] = (2, 2, 2, 2, 4)) -> dict:
+    """A port KeypointNet state_dict -> JAX ``{"params", "batch_stats"}``,
+    nested dicts of C-ordered float32 numpy arrays. Raises on a missing or
+    unexpected key."""
+    entries = _NameMap().keypoint_net(stacks, levels, mods).entries
+    expected = {key for key, *_ in entries}
+    if set(state_dict) != expected:
+        raise KeyError(f"state_dict keys differ from the KeypointNet's: missing "
+                       f"{sorted(expected - set(state_dict))[:5]}, unexpected "
+                       f"{sorted(set(state_dict) - expected)[:5]}")
+    variables = {"params": {}, "batch_stats": {}}
+    for key, collection, path, kind in entries:
+        if collection is None:
+            continue
+        value = state_dict[key]
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        node = variables[collection]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(_LAYOUTS[kind][1](value), dtype=np.float32)
+    return variables

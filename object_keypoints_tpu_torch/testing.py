@@ -7,6 +7,8 @@
   fisheye projections in both views of the 180x320 rig.
 - ``compare_stereo``: one stereo decode held to another (masks equal, 2D
   within a pixel tolerance, 3D within ``stereo_3d_tolerance``).
+- ``synthetic_sequence_in_memory``: a synthetic sequence whose poses and
+  frames stay in memory, for machines without h5py.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from object_keypoints_tpu_torch.data.encode import SequenceWriter
+from object_keypoints_tpu_torch.data.synthetic import synthetic_recording
 from object_keypoints_tpu_torch.geometry import cameras, stereo
 
 BENCH_OFFSET = np.array([(511.0 / 720.0 * 1280.0 - 511.0) / 2.0, 0.0])  # bench.py:194
@@ -132,3 +136,18 @@ def compare_stereo(got, want, what: str, atol_2d: float = 1e-4, flat_to: float =
     worst = float(ratio.max(initial=0.0))
     assert worst <= 1.0, f"{what}: 3D error {worst:.3g} x its tolerance"
     return worst, int(held.sum()), int((~held).sum())
+
+
+def synthetic_sequence_in_memory(out_dir: str, calibration_file: str, keypoint_config,
+                                 n_frames: int, seed: int = 0):
+    """A synthetic sequence (``data.synthetic.synthetic_recording``) with
+    only its labels on disk: writes calibration.yaml and keypoints.json into
+    ``out_dir`` (neither needs cv2 or h5py) and returns the ``recording``
+    (poses, RGB uint8 frames) that ``evaluation.Sequence`` and
+    ``SceneDataset`` take in place of data.hdf5 and frames.mp4."""
+    world_points, poses, frames = synthetic_recording(calibration_file, keypoint_config,
+                                                      n_frames=n_frames, seed=seed)
+    labels = SequenceWriter(out_dir, preview=False)  # no frames: nothing to close
+    labels.write_calibration(calibration_file)
+    labels.write_keypoints(world_points)
+    return poses, list(frames)

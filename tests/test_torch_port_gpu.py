@@ -244,3 +244,60 @@ def test_components_decode_on_the_card(cuda, monkeypatch):
     for a, b in zip(card, cpu):
         for pa, pb in zip(a["p_C"], b["p_C"]):
             torch.testing.assert_close(torch.from_numpy(pa), torch.from_numpy(pb), atol=1e-4, rtol=0)
+
+
+def test_targets_render_on_card_as_on_cpu(cuda):
+    """The target renderer on the card against the same renderer on the CPU,
+    a batch of frames with overlapping discs, out-of-frame and invalid
+    points: heatmaps within 1e-6 (exp rounds differently), depth and centers
+    within 1e-6 with equal support."""
+    from object_keypoints_tpu_torch.data import targets
+
+    rng = numpy.random.default_rng(9)
+    config = (1, 1, 3)
+    points = rng.uniform(-8, 72, size=(6, 3, 5, 2)).astype(numpy.float32)
+    points[:, 1:, :2] = points[:, :1, :2] + rng.uniform(-4, 4, size=(6, 2, 2, 2))
+    points_C = numpy.concatenate([points, rng.uniform(0.5, 2.0, size=(6, 3, 5, 1))],
+                                 axis=-1).astype(numpy.float32)
+    valid = rng.uniform(size=(6, 3, 5)) > 0.2
+    inputs = [torch.from_numpy(a) for a in (points, points_C, valid)]
+    cpu = targets.render_all_targets(*inputs, config, (64, 64))
+    card = targets.render_all_targets(*(t.to(cuda) for t in inputs), config, (64, 64))
+    for name, got, want in zip(("heatmaps", "depth", "centers"), card, cpu):
+        assert got.device.type == "cuda", name
+        torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0, msg=lambda m: f"{name}: {m}")
+        if name != "heatmaps":
+            assert torch.equal(got.cpu() != 0, want != 0), name
+
+
+def test_ground_truth_fast_eval_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """evaluate_sequence_fast(ground_truth=True) on the card (targets
+    rendered and decoded there) against the CPU, on a synthetic sequence
+    held in memory: n_points and missing_pct equal, cm within 1e-3; and the
+    dataset's examples with targets rendered on the card against the CPU's
+    (maps within 1e-6)."""
+    from object_keypoints_tpu_torch import evaluation
+    from object_keypoints_tpu_torch.testing import synthetic_sequence_in_memory
+
+    monkeypatch.chdir(ROOT)
+    seq_dir = str(tmp_path / "seq")
+    recording = synthetic_sequence_in_memory(seq_dir, CALIBRATION, (1, 3), n_frames=6, seed=7)
+    config = {"keypoint_config": [1, 3]}
+    card, cpu = (evaluation.evaluate_sequence_fast(
+        evaluation.Sequence(seq_dir, config, device=device, recording=recording), None, config,
+        batch_size=4, ground_truth=True).summary() for device in ("cuda", "cpu"))
+    assert card["n_points"] == cpu["n_points"] > 0 and card["missing_pct"] == cpu["missing_pct"]
+    for key in ("mean_cm", "mean_xy_cm", "std_cm", "p25_cm", "p75_cm"):
+        assert abs(card[key] - cpu[key]) <= 1e-3, (key, card[key], cpu[key])
+    assert card["mean_cm"] < 5.0
+
+    # the per-frame examples of a dataset rendering on the card
+    from object_keypoints_tpu_torch.data.scene import SceneDataset
+
+    on_card = SceneDataset(seq_dir, config, device=cuda, recording=recording)
+    on_cpu = SceneDataset(seq_dir, config, recording=recording)
+    for got, want in zip(on_card, on_cpu):
+        assert torch.equal(torch.from_numpy(got["frame"]), torch.from_numpy(want["frame"]))
+        for name in ("heatmaps", "depth", "centers"):
+            torch.testing.assert_close(torch.from_numpy(got[name]), torch.from_numpy(want[name]),
+                                       atol=1e-6, rtol=0)

@@ -10,6 +10,7 @@ tolerances of test_torch_port_decode (masks equal, 1e-4 px, 1e-5 m).
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -93,9 +94,32 @@ def test_load_model_reads_flax_msgpack_without_flax(artifact):
     ) == sum(np.size(a) for a in flat)
 
 
-def test_int8_serving_is_not_ported(artifact):
+def test_int8_serving_is_not_ported(artifact, tmp_path):
+    """An artifact holding quant.json is served int8 by the JAX package
+    under the default "auto": the port refuses it rather than serve float."""
+    quantized = tmp_path / "quantized"
+    shutil.copytree(artifact, quantized)
+    (quantized / export.QUANT_NAME).write_text(json.dumps({"backbone/pre_conv": 1.0}))
+    for quantize in ("auto", "require"):
+        with pytest.raises(NotImplementedError, match="int8 serving is not ported"):
+            export.load_inference_fn(str(quantized), quantize=quantize, device="cpu")
     with pytest.raises(NotImplementedError):
-        export.load_inference_fn(artifact, quantize="auto")
+        export.load_inference_fn(str(quantized), device="cpu")  # "auto" is the default
+    with pytest.raises(NotImplementedError):
+        export.load_inference_fn(artifact, quantize="require", device="cpu")
+    with pytest.raises(ValueError):
+        export.load_inference_fn(artifact, quantize="int8", device="cpu")
+    export.load_inference_fn(str(quantized), quantize="never", device="cpu")
+
+
+def test_auto_serves_a_float_artifact_in_float(artifact):
+    """quantize="auto" (the default, as in the JAX package) on an artifact
+    without quant.json serves float, equal to quantize="never"."""
+    frames = np.random.default_rng(23).normal(size=(2, 3, 128, 128)).astype(np.float32)
+    auto = export.load_inference_fn(artifact, device="cpu")(frames)
+    never = export.load_inference_fn(artifact, quantize="never", device="cpu")(frames)
+    for a, b in zip(auto, never):
+        assert torch.equal(a, b)
 
 
 def test_serving_defaults_to_the_card(artifact, monkeypatch):
@@ -120,7 +144,10 @@ def test_port_never_imports_jax(tmp_path):
         "from object_keypoints_tpu_torch.pipeline import components, decode\n"
         "from object_keypoints_tpu_torch.pipeline import stereo as pipeline_stereo\n"
         "from object_keypoints_tpu_torch.serving import export, weights\n"
-        "from object_keypoints_tpu_torch import testing\n"
+        "from object_keypoints_tpu_torch import constants, evaluation, testing\n"
+        "from object_keypoints_tpu_torch.data import augment, encode, scene, synthetic, targets\n"
+        "from object_keypoints_tpu_torch.utils import vis\n"
+        "from object_keypoints_tpu_torch.cli import eval_model\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'object_keypoints_tpu'))\n"
         "print(json.dumps(bad))\n"
