@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port's serve path on one CUDA card.
+"""Smoke run of the PyTorch port on one CUDA card: serve, eval and train paths.
 
     python3 chip_smoke.py
 
@@ -57,13 +57,31 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    the card, one batch's decode equal to the CPU decode of the same maps;
    prints frames/s of both, the host's prefix ms per frame, the forward's,
    the decode's and Results.add's ms per batch, peak memory, and the
-   device's busy share of one more run of each, traced on the card.
+   device's busy share of one more run of each, traced on the card;
+9. training (``training.device_data.train_step_device_data``) on a device
+   store of 32 synthetic 511x511 frames with 2 objects each (two in-memory
+   sequences, seeded), batch 8, lr 4e-3, augment on, the full-width valve
+   KeypointNet: float32 (TF32 off) and bf16 (bf16 compute over float32
+   parameters and BatchNorm) step times by CUDA events and by host clock
+   over 20 warm steps, frames/s, peak memory, the device's busy share of
+   one traced step, and a check that a warm step never waits for the card
+   (``torch.cuda.set_sync_debug_mode("error")``); the loss over 100 bf16
+   steps, finite and falling (the mean of the last 10 below the first 10);
+   one float32 step at batch 2 (augment and dropout off) on the card
+   against the same step on the CPU; eval_step in float32 and in bf16,
+   each launching the stem kernel of its dtype once; the trained bf16
+   weights through export_model -> load_inference_fn (float32) -> decode,
+   equal to the CPU decode of the same maps.
+
+The process's TF32 flags stay at torch's defaults: the port's entry points
+(``infer``, the train and eval steps) pin TF32 off themselves; phases 3 and
+4 pin it for the plain comparisons.
 
 Any failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON and ``{"ok": true, "device": {...}}``. The stem
-wrapper counts launches in all and per kernel; phases 4, 5, 6 and 8 each
-set the counts to 0 before they run and read them after, and the kernels'
-line gives each kernel's launches from those runs.
+wrapper counts launches in all and per kernel; phases 4, 5, 6, 8 and 9
+(its eval_steps) each set the counts to 0 before they run and read them
+after, and the kernels' line gives each kernel's launches from those runs.
 """
 
 import json
@@ -83,6 +101,9 @@ EVAL_BATCH = 8  # scripts/eval_model.py's --batch default
 SEED = 0
 KEYPOINT_CONFIG = (1, 3)
 CALIBRATION = "config/calibration.yaml"
+TRAIN_FRAMES, TRAIN_SEQUENCES = 32, 2  # 2 objects a frame
+TRAIN_BATCH, TRAIN_LR = 8, 4e-3  # the flagship recipe's
+TRAIN_STEPS, TRAIN_TIMED = 100, 20
 STEM_REPLACES = "object_keypoints_tpu/ops/pallas/stem_conv.py:127"
 STEM_SOURCE = "object_keypoints_tpu_torch/csrc/stem_conv.cu"
 # one H100 SXM (NVIDIA's data sheet): HBM rate, dense peak by type
@@ -141,8 +162,6 @@ def phase_device():
                          capture_output=True, text=True, check=True, timeout=60).stdout
     card = smi.strip().splitlines()[0]
     print(card, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     log("device", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         python=sys.version.split()[0])
@@ -199,7 +218,13 @@ def stem_bound(x, c_out):
 
 def phase_stem_kernel():
     from object_keypoints_tpu_torch.ops.stem_conv import stem_conv, stem_conv_plain
+    from object_keypoints_tpu_torch.precision import no_tf32
 
+    with no_tf32():  # the plain version and cuDNN's fp32 conv in float32
+        return stem_kernel_rows(stem_conv, stem_conv_plain)
+
+
+def stem_kernel_rows(stem_conv, stem_conv_plain):
     gen = torch.Generator().manual_seed(SEED)
     result = {}
     for n, dtype, atol, rtol in ((16, torch.float32, 1e-4, 0.0), (EVAL_BATCH, torch.float32, 1e-4, 0.0),
@@ -237,21 +262,22 @@ def phase_stem_kernel():
     return result
 
 
-def make_model():
+def make_model(dropout=0.1):
     from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet
 
-    return KeypointNet(heatmaps_out=3, generator=torch.Generator().manual_seed(SEED))
+    return KeypointNet(heatmaps_out=3, dropout=dropout, generator=torch.Generator().manual_seed(SEED))
 
 
 def phase_full_forward():
     from object_keypoints_tpu_torch.ops.stem_conv import stem_conv_plain
+    from object_keypoints_tpu_torch.precision import no_tf32
 
     model = make_model()
     n_params = sum(p.numel() for p in model.parameters())
     assert round(n_params / 1e6, 2) == 24.95, n_params
     model = model.to("cuda", memory_format=torch.channels_last).eval()
     x = torch.randn(2, 3, 511, 511, generator=torch.Generator().manual_seed(SEED + 1)).cuda()
-    with torch.inference_mode():
+    with torch.inference_mode(), no_tf32():
         reset_stem_counts()  # this path's run starts here
         out = model(x)
         counts = stem_counts()  # ... and ends here
@@ -674,6 +700,191 @@ def phase_eval(card):
     return launches
 
 
+def state_dict_to(model, device):
+    return {k: v.detach().to(device, copy=True) for k, v in model.state_dict().items()}
+
+
+def phase_train(card):
+    """The training slice on the device store: step times fp32 (TF32 off)
+    and bf16, frames/s, a traced step, peak memory, a falling loss over
+    TRAIN_STEPS augmented bf16 steps, one step on the card against the CPU,
+    eval_step's stem launches by kernel, and the trained weights through
+    export_model -> load_inference_fn -> decode."""
+    from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
+    from object_keypoints_tpu_torch.pipeline.decode import CameraArrays, decode_objects_batch
+    from object_keypoints_tpu_torch.serving.export import export_model, load_inference_fn
+    from object_keypoints_tpu_torch.testing import serve_rig, synthetic_datasets
+    from object_keypoints_tpu_torch.training import device_data, trainer
+
+    config = (1, *KEYPOINT_CONFIG)  # the maps, center map first
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        datasets = synthetic_datasets(tmp, CALIBRATION, KEYPOINT_CONFIG, n_sequences=TRAIN_SEQUENCES,
+                                      n_frames=TRAIN_FRAMES // TRAIN_SEQUENCES, n_objects=2, seed=SEED)
+        store = device_data.build_device_store(datasets, "cuda")
+        store_s = time.perf_counter() - t0
+        store_cpu = device_data.DeviceStore(*(t.cpu() for t in store))
+    assert store.n_frames == TRAIN_FRAMES and store.frames.shape[1:] == (511, 511, 3)
+    assert store.valid.shape[1] == 2 and bool(store.valid.all()), store.valid.shape
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    order = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def indices():
+        return torch.randperm(store.n_frames, generator=order, device="cuda")[:TRAIN_BATCH]
+
+    def step_parts(state, gen):
+        """One augmented step from the parts train_step_device_data runs, the
+        host clock around each: the host's ms to enqueue the data suffix, the
+        forward and loss, the backward and the optimizer, then its wait for
+        the card."""
+        from object_keypoints_tpu_torch.precision import no_tf32
+
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        batch = device_data.device_batch(store, indices(), config, generator=gen)
+        marks.append(time.perf_counter())
+        with no_tf32():
+            loss, _, _ = trainer.loss_and_metrics(state.model, batch, True, state.dtype, gen)
+            marks.append(time.perf_counter())
+            grads = list(torch.autograd.grad(loss, state.params))
+        marks.append(time.perf_counter())
+        trainer.apply_gradients(state, grads, loss.detach())
+        marks.append(time.perf_counter())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        names = ("data", "forward", "backward", "optimizer", "wait")
+        return {n: 1e3 * (b - a) for n, a, b in zip(names, marks, marks[1:])}
+
+    def run(dtype, steps, timed):
+        """``steps`` augmented steps from seeded weights; the losses, and the
+        step time over ``timed`` steps after the first warm ones, by CUDA
+        events and by host clock."""
+        state = trainer.create_train_state(make_model(), trainer.make_optimizer(lr=TRAIN_LR), dtype)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        step = lambda: device_data.train_step_device_data(state, store, indices(), gen, config)[1]
+        torch.cuda.reset_peak_memory_stats()
+        warm = steps - timed
+        losses = [step()["loss"] for _ in range(warm)]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        losses += [step()["loss"] for _ in range(timed)]
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / timed
+        cuda_ms = start.elapsed_time(end) / timed
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.set_sync_debug_mode("error")  # a warm step must not wait for the card
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        busy, ops, wall = traced_busy_share(step)
+        parts = [step_parts(state, gen) for _ in range(3)]
+        return state, torch.stack(losses).cpu(), dict(
+            host_ms_by_part={k: statistics.median(p[k] for p in parts) for k in parts[0]},
+            step_ms_cuda_events=cuda_ms, step_ms_host=host_ms,
+            frames_per_sec=1e3 * TRAIN_BATCH / host_ms, peak_mem_gib=peak,
+            traced_step=dict(device_busy_share=busy, device_ops=ops, wall_ms=wall))
+
+    state32, losses32, fp32 = run(torch.float32, 3 + TRAIN_TIMED, TRAIN_TIMED)
+    state16, losses16, bf16 = run(torch.bfloat16, TRAIN_STEPS, TRAIN_TIMED)
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    assert torch.isfinite(losses32).all() and torch.isfinite(losses16).all()
+    first10, last10 = losses16[:10].mean().item(), losses16[-10:].mean().item()
+    assert last10 < first10, (first10, last10)
+    assert all(p.dtype == torch.float32 for p in state16.model.parameters())
+
+    # one fp32 step, batch 2, augment and dropout off: the card against the
+    # CPU, and each against the same step in float64 on the CPU (the witness)
+    init = state_dict_to(make_model(dropout=0.0), "cpu")
+    sides = []
+    for dtype, st, device in ((torch.float32, store, "cuda"), (torch.float32, store_cpu, "cpu"),
+                              (torch.float64, store_cpu, "cpu")):
+        mdl = make_model(dropout=0.0)
+        mdl.load_state_dict(init)
+        state = trainer.create_train_state(mdl.to(dtype), trainer.make_optimizer(lr=TRAIN_LR),
+                                           dtype, device=device)
+        batch = device_data.device_batch(st, torch.tensor([0, 1], device=device), config,
+                                         augment=False)
+        t0 = time.perf_counter()
+        loss, metrics, grads = trainer.loss_and_grads(state, batch)
+        trainer.apply_gradients(state, grads, loss)
+        sides.append((loss.cpu().double(), [g.cpu().double() for g in grads],
+                      {k: v.double() for k, v in state_dict_to(mdl, "cpu").items()},
+                      time.perf_counter() - t0))
+    (card_loss, card_grads, card_sd, _), (cpu_loss, cpu_grads, cpu_sd, cpu_s), exact = sides
+
+    def grad_error(grads, want):
+        """The gradient's error as a share of the whole gradient's norm, and
+        the worst single tensor's as a share of its largest element."""
+        whole = (sum((g - w).square().sum() for g, w in zip(grads, want))
+                 / sum(w.square().sum() for w in want)).sqrt().item()
+        worst = max(((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+                    for g, w in zip(grads, want))
+        return whole, worst
+
+    loss_rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    grad_rel, grad_tensor_rel = grad_error(card_grads, cpu_grads)
+    card_vs_f64, card_vs_f64_tensor = grad_error(card_grads, exact[1])
+    cpu_vs_f64, cpu_vs_f64_tensor = grad_error(cpu_grads, exact[1])
+    stats_rel = max(((card_sd[k] - cpu_sd[k]).abs().max() / cpu_sd[k].abs().max()).item()
+                    for k in cpu_sd if "running" in k)
+    assert loss_rel <= 1e-5 and grad_rel <= 1e-2 and card_vs_f64 <= 1e-2 and stats_rel <= 1e-3, (
+        loss_rel, grad_rel, card_vs_f64, stats_rel)
+
+    # eval_step on the card: the eval-mode stem runs the kernel of its dtype
+    launches = {}
+    for name, state in (("float32", state32), ("bfloat16", state16)):
+        batch = device_data.device_batch(store, indices(), config, augment=False)
+        reset_stem_counts()  # this path's run starts here
+        metrics = trainer.eval_step(state, batch)
+        launches[name] = stem_counts()  # ... and ends here
+        assert all(torch.isfinite(v).all() for v in metrics.values())
+        assert 0.0 <= metrics["val_loss"].item() <= 1.0
+    assert launches["float32"] == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, launches
+    assert launches["bfloat16"] == {"all": 1, "stem_conv_bf16": 1, "stem_conv_fp32": 0}, launches
+
+    # the trained bf16 weights through an artifact, served in float32, and
+    # the card's decode of their maps against the CPU's
+    cam = serve_rig(load_calibration_params(CALIBRATION)).left_camera
+    decode_kw = dict(keypoint_config=KEYPOINT_CONFIG, model="equidistant", max_peaks=16)
+    with tempfile.TemporaryDirectory() as tmp:
+        export_model(tmp, {"heatmaps_out": 3, "input_size": 511,
+                           "keypoint_config": list(KEYPOINT_CONFIG)}, state16.model)
+        infer = load_inference_fn(tmp, device="cuda")
+    frames = trainer.prepare_frames(store.frames[:TRAIN_BATCH])
+    maps = infer(frames)
+    for t in maps:
+        assert t.device.type == "cuda" and torch.isfinite(t).all()
+    decoded = decode_objects_batch(*maps, CameraArrays.from_camera(cam, device="cuda"), **decode_kw)
+    check_decode_on_cpu("trained", decoded, maps, cam, decode_kw)
+
+    eval_launches = {k: sum(v[k] for v in launches.values()) for k in launches["float32"]}
+    log("train", frames=TRAIN_FRAMES, frame_size=[511, 511], objects=2, batch=TRAIN_BATCH,
+        lr=TRAIN_LR, params=sum(p.numel() for p in state16.model.parameters()),
+        source="synthetic recordings in memory -> build_device_store; augment on",
+        store_build_s=store_s, float32=fp32, bfloat16=bf16,
+        bf16_losses=[round(x, 3) for x in losses16.tolist()],
+        bf16_first10_mean=first10, bf16_last10_mean=last10, fp32_losses=losses32.tolist(),
+        card_vs_cpu=dict(batch=2, loss_rel=loss_rel, grad_rel=grad_rel,
+                         grad_worst_tensor_rel=grad_tensor_rel, card_vs_float64=card_vs_f64,
+                         card_vs_float64_worst_tensor=card_vs_f64_tensor,
+                         cpu_vs_float64=cpu_vs_f64, cpu_vs_float64_worst_tensor=cpu_vs_f64_tensor,
+                         float64_loss_rel=abs(cpu_loss.item() - exact[0].item()) / exact[0].item(),
+                         running_stats_rel=stats_rel, cpu_step_s=cpu_s, cpu_float64_step_s=exact[3],
+                         tolerance="loss rel 1e-5; the whole gradient within 1e-2 of its norm, card "
+                                   "vs CPU and card vs the float64 step (cuDNN's float32 step moves "
+                                   "by run: 9.5e-4 to 1.6e-3 of the norm seen; single tensors, which "
+                                   "float32 misses by a few % where BatchNorm divides by small "
+                                   "batch variances, are reported, not held); each running "
+                                   "statistic within 1e-3 of its tensor's largest"),
+        eval_step_stem_launches=launches, trained_decode_valid_centers=int(decoded.center_valid.sum()),
+        process_tf32_flags=dict(cudnn=flags[0], matmul=flags[1]), card=card)
+    return eval_launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -681,6 +892,7 @@ def main():
     paths = [phase_full_forward(), phase_serve(card), phase_stereo_serve(card)]
     phase_stereo_scene()
     paths.append(phase_eval(card))
+    paths.append(phase_train(card))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

@@ -2,8 +2,9 @@
 
 The JAX package ``object_keypoints_tpu`` is the reference; this package
 reproduces its two KeypointNet serve paths (depth head and
-stereo-triangulated) and its evaluation path on an NVIDIA H100 and keeps its
-module names, so each module here has a counterpart of the same name there:
+stereo-triangulated), its evaluation path and its training step on an NVIDIA
+H100 and keeps its module names, so each module here has a counterpart of
+the same name there:
 
 models      blocks, fire hourglass, KeypointNet (NCHW)
 ops         stem_conv (CUDA kernel + plain version), decode, associate
@@ -14,7 +15,11 @@ pipeline    decode: heatmaps -> associated 3D keypoints (batched);
             components: the reference's host API over both
 serving     export (artifacts both ways, inference fn), weights (JAX <-> port)
 data        scene (SceneDataset), targets (batched target rendering),
-            augment, encode (SequenceWriter), synthetic sequences
+            augment, augment_device (batched, on the card), encode
+            (SequenceWriter), synthetic sequences, combinators, prefetch
+training    losses, trainer (AdamW + plateau, train and eval steps),
+            device_data (the dataset on the card, train_step_device_data)
+precision   no_tf32: float32 means float32 at every entry point
 evaluation  Sequence, Results, batched and per-frame sequence evaluation
 cli         eval_model, the eval CLI
 utils       vis: heatmap overlays, live viewer

@@ -21,6 +21,7 @@ other files alone); every frame goes through the same per-frame code.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Iterator
@@ -34,11 +35,20 @@ from object_keypoints_tpu_torch.data.augment import AugmentationPipeline
 from object_keypoints_tpu_torch.geometry import cameras, linalg
 
 
+@functools.lru_cache(maxsize=None)
+def _rgb_stats(device: torch.device):
+    """The normalization constants on ``device``, made once (and never as
+    inference tensors, so any caller may use them): a host->device copy
+    waits for the card, which a train step must not."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(RGB_MEAN, device=device), torch.as_tensor(RGB_STD, device=device)
+
+
 def normalize_frames(frames):
-    """RGB uint8 frames (..., H, W, 3), a tensor on any device -> float32
-    (x / 255 - mean) / std on that device, the reference's normalization."""
-    mean = torch.as_tensor(RGB_MEAN, device=frames.device)
-    std = torch.as_tensor(RGB_STD, device=frames.device)
+    """RGB frames in [0, 255] (..., H, W, 3), uint8 or float, a tensor on any
+    device -> float32 (x / 255 - mean) / std on that device, the reference's
+    normalization."""
+    mean, std = _rgb_stats(frames.device)
     return (frames.to(torch.float32) / 255.0 - mean) / std
 
 

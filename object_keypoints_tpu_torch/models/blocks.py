@@ -5,21 +5,91 @@ take and return NCHW tensors; their attribute names follow the reference
 torch state_dict (``conv``/``bn``, ``conv1``/``bn1``/``conv2``/``bn2``/
 ``skip``, ``conv_1x1``/``conv_3x3``), so
 ``object_keypoints_tpu.serving.torch_import`` reads a port state_dict as it
-is. BatchNorm eps is 1e-5 and torch momentum 0.1 (flax momentum 0.9).
-Weights start from torch's Conv2d default, kaiming_uniform(a=sqrt(5)), the
-JAX package's ``torch_conv_kernel_init``.
+is. Weights start from torch's Conv2d default, kaiming_uniform(a=sqrt(5)),
+the JAX package's ``torch_conv_kernel_init``.
+
+Precision follows the JAX package's ``dtype`` rule (``precision``): the
+parameters and BatchNorm statistics stay float32 and a block computes in
+its input's dtype. ``Conv2d`` and ``ConvTranspose2d`` cast their weights to
+it; ``BatchNorm2d`` is flax's BatchNorm (momentum 0.9, eps 1e-5, the biased
+batch variance folded into the running one).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from object_keypoints_tpu_torch.ops.stem_conv import fold_bn, stem_conv
 
+MOMENTUM = 0.9  # flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 
-def _bn(dim: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(dim, eps=1e-5, momentum=0.1)
+
+def in_dtype(module, dtype):
+    """``module``'s weight and bias in ``dtype``. Where the weights need a
+    gradient the cast is part of the autograd graph, made on every call;
+    otherwise it is kept on the module until the weights change (another
+    storage or an in-place write, seen by the version counter), so a serving
+    forward casts once and not once a call. An inference tensor has no
+    version counter, so its cast is made on every call."""
+    w, b = module.weight, module.bias
+    if w.dtype == dtype:
+        return w, b
+
+    def cast():
+        return w.to(dtype), None if b is None else b.to(dtype)
+
+    if (torch.is_grad_enabled() and w.requires_grad) or w.is_inference():
+        return cast()
+    key = (w.data_ptr(), w._version, None if b is None else (b.data_ptr(), b._version), dtype,
+           torch.is_inference_mode_enabled())
+    cached = getattr(module, "_cast", None)
+    if cached is None or cached[0] != key:
+        cached = module._cast = (key, cast())
+    return cached[1]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` over float32 weights that computes in its input's dtype."""
+
+    def forward(self, x):
+        return self._conv_forward(x, *in_dtype(self, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` over float32 weights that computes in its
+    input's dtype."""
+
+    def forward(self, x):
+        w, b = in_dtype(self, x.dtype)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax's BatchNorm over NCHW. Weight, bias and running statistics stay
+    float32 whatever the input's dtype; the normalization runs in float32
+    and returns the input's dtype. Train mode normalizes by the batch's
+    biased variance and folds that same biased variance into
+    ``running_var``, as flax does: ``nn.BatchNorm2d`` folds the unbiased
+    one, n / (n - 1) larger. ``num_batches_tracked`` is not counted."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5, momentum=1.0 - MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        # momentum 1 writes the batch's mean and unbiased variance into `batch`
+        batch = self.running_mean.new_zeros(2, self.num_features)
+        y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(MOMENTUM).add_(batch[0], alpha=1.0 - MOMENTUM)
+            self.running_var.mul_(MOMENTUM).add_(batch[1], alpha=(1.0 - MOMENTUM) * (n - 1) / n)
+        return y
 
 
 class ConvBlock(nn.Module):
@@ -28,8 +98,8 @@ class ConvBlock(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, kernel: int = 3, stride: int = 1):
         super().__init__()
         pad = (kernel - 1) // 2
-        self.conv = nn.Conv2d(in_dim, out_dim, kernel, stride=stride, padding=pad, bias=False)
-        self.bn = _bn(out_dim)
+        self.conv = Conv2d(in_dim, out_dim, kernel, stride=stride, padding=pad, bias=False)
+        self.bn = BatchNorm2d(out_dim)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))
@@ -58,13 +128,13 @@ class Residual(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, kernel: int = 3, stride: int = 1):
         super().__init__()
         pad = (kernel - 1) // 2
-        self.conv1 = nn.Conv2d(in_dim, out_dim, kernel, stride=stride, padding=pad, bias=False)
-        self.bn1 = _bn(out_dim)
-        self.conv2 = nn.Conv2d(out_dim, out_dim, kernel, padding=pad, bias=False)
-        self.bn2 = _bn(out_dim)
+        self.conv1 = Conv2d(in_dim, out_dim, kernel, stride=stride, padding=pad, bias=False)
+        self.bn1 = BatchNorm2d(out_dim)
+        self.conv2 = Conv2d(out_dim, out_dim, kernel, padding=pad, bias=False)
+        self.bn2 = BatchNorm2d(out_dim)
         if stride != 1 or in_dim != out_dim:
             self.skip = nn.Sequential(
-                nn.Conv2d(in_dim, out_dim, 1, stride=stride, bias=False), _bn(out_dim)
+                Conv2d(in_dim, out_dim, 1, stride=stride, bias=False), BatchNorm2d(out_dim)
             )
         else:
             self.skip = nn.Identity()
@@ -82,12 +152,12 @@ class FireModule(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, sr: int = 2, stride: int = 1):
         super().__init__()
         squeezed = out_dim // sr
-        self.conv1 = nn.Conv2d(in_dim, squeezed, 1, bias=False)
-        self.bn1 = _bn(squeezed)
-        self.conv_1x1 = nn.Conv2d(squeezed, out_dim // 2, 1, stride=stride, bias=False)
-        self.conv_3x3 = nn.Conv2d(squeezed, out_dim // 2, 3, stride=stride, padding=1,
+        self.conv1 = Conv2d(in_dim, squeezed, 1, bias=False)
+        self.bn1 = BatchNorm2d(squeezed)
+        self.conv_1x1 = Conv2d(squeezed, out_dim // 2, 1, stride=stride, bias=False)
+        self.conv_3x3 = Conv2d(squeezed, out_dim // 2, 3, stride=stride, padding=1,
                                   groups=squeezed, bias=False)
-        self.bn2 = _bn(out_dim)
+        self.bn2 = BatchNorm2d(out_dim)
         self.skip = stride == 1 and in_dim == out_dim
 
     def forward(self, x):
@@ -101,4 +171,4 @@ class MergeBN(nn.Sequential):
     ``0.weight`` and ``1.*`` as in the reference."""
 
     def __init__(self, in_dim: int, out_dim: int):
-        super().__init__(nn.Conv2d(in_dim, out_dim, 1, bias=False), _bn(out_dim))
+        super().__init__(Conv2d(in_dim, out_dim, 1, bias=False), BatchNorm2d(out_dim))

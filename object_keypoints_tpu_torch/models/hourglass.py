@@ -20,6 +20,7 @@ from torch import nn
 
 from object_keypoints_tpu_torch.models.blocks import (
     ConvBlock,
+    ConvTranspose2d,
     FireModule,
     MergeBN,
     Residual,
@@ -48,7 +49,7 @@ class FireHourglass(nn.Module):
             *[FireModule(next_dim, next_dim) for _ in range(curr_mod - 1)],
             FireModule(next_dim, curr_dim),
         )
-        self.up2 = nn.ConvTranspose2d(curr_dim, curr_dim, 4, stride=2, padding=1)
+        self.up2 = ConvTranspose2d(curr_dim, curr_dim, 4, stride=2, padding=1)
 
     def forward(self, x):
         return self.up1(x) + self.up2(self.low3(self.low2(self.low1(x))))

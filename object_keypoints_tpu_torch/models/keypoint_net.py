@@ -3,7 +3,9 @@
 Counterpart of ``object_keypoints_tpu/models/keypoint_net.py``. Heads are
 3-conv prediction modules, one per hourglass stack, under the reference
 names ``{heatmap,depth,center}_head.output_head{s+1}.{0,1,2}``. Dropout on
-the stack features is identity in eval mode.
+the stack features is flax's, drawn from the ``torch.Generator`` that the
+forward is given (torch's default one when none), and identity in eval
+mode.
 
 Layouts: the public functions take and return NCHW tensors. Inside, the
 forward runs in whatever memory format its input has; the stem returns
@@ -26,7 +28,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from object_keypoints_tpu_torch.models.blocks import ConvBlock
+from object_keypoints_tpu_torch.models.blocks import Conv2d, ConvBlock
 from object_keypoints_tpu_torch.models.hourglass import HourglassStack
 from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
 
@@ -41,9 +43,20 @@ class PredictionModule(nn.Sequential):
         super().__init__(
             ConvBlock(in_dim, features, 1),
             ConvBlock(features, 32, 1),
-            nn.Conv2d(32, out, 1, bias=True),
+            Conv2d(32, out, 1, bias=True),
         )
         self.bias_init_value = bias_init_value
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+    """flax's Dropout: keep each element with probability 1 - ``rate``
+    (uniform draws from ``generator`` below it) and scale it by
+    1 / (1 - rate); the rest become 0."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    draws = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(draws < keep, x / keep, 0.0)
 
 
 class KeypointNetOutputs(NamedTuple):
@@ -66,7 +79,7 @@ class KeypointNet(nn.Module):
         super().__init__()
         self.heatmaps_out = heatmaps_out
         self.backbone = HourglassStack(stacks, levels, dims, mods, stem_features, cnv_dim)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout_rate = dropout
         T = heatmaps_out - 1
         for head, out, bias in (("heatmap", heatmaps_out, HEATMAP_BIAS),
                                 ("depth", heatmaps_out, 0.0),
@@ -97,8 +110,11 @@ class KeypointNet(nn.Module):
             if isinstance(m, PredictionModule):
                 m[2].bias.fill_(m.bias_init_value)
 
-    def forward(self, x, stem=stem_conv) -> KeypointNetOutputs:
-        feats = [self.dropout(f) for f in self.backbone(x, stem)]
+    def forward(self, x, stem=stem_conv,
+                generator: Optional[torch.Generator] = None) -> KeypointNetOutputs:
+        feats = self.backbone(x, stem)
+        if self.training:
+            feats = [dropout(f, self.dropout_rate, generator) for f in feats]
         heat, depth, centers = [], [], []
         for s, f in enumerate(feats):
             key = f"output_head{s + 1}"

@@ -10,7 +10,10 @@ CUDA tensor: bf16 frames go to the tensor-core kernel
 (``okt_stem_conv_bf16``), fp32 frames to the CUDA-core kernel
 (``okt_stem_conv_fp32``); on anything the kernels do not take it raises.
 Both return an (N, C, Ho, Wo) tensor in channels_last memory format,
-Ho = (H - 1)//2 + 1.
+Ho = (H - 1)//2 + 1. On the card it is differentiable, as the JAX
+eval-mode forward is: the TPU kernel has no backward of its own, so the
+backward recomputes the plain version under autograd and differentiates
+that (``StemConvKernel``).
 """
 
 from __future__ import annotations
@@ -77,6 +80,29 @@ def stem_conv_plain(frames, w, scale, bias):
     return y.to(frames.dtype).contiguous(memory_format=torch.channels_last)
 
 
+class StemConvKernel(torch.autograd.Function):
+    """The CUDA kernel as an autograd op. Forward: one launch. Backward:
+    the plain version recomputed under autograd (cuDNN's conv backward,
+    then the affine and the ReLU), which gives ``frames``, ``w``, ``scale``
+    and ``bias`` their gradients; ``fold_bn`` stays outside, so BatchNorm's
+    weight and bias get theirs through it."""
+
+    @staticmethod
+    def forward(ctx, frames, w, scale, bias):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(frames, w, scale, bias)
+        return _launch(frames, w, scale, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = stem_conv_plain(*inputs)
+        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], grad))
+        return tuple(next(grads) if need else None for need in ctx.needs_input_grad)
+
+
 def stem_conv(frames, w, scale, bias):
     """frames (N, 3, H, W) contiguous fp32/bf16, w (C, 3, 7, 7), scale and
     bias (C,) fp32 -> relu(conv(frames, w) * scale + bias), channels_last.
@@ -92,8 +118,7 @@ def stem_conv(frames, w, scale, bias):
             f"stem_conv: frames must be contiguous (N, 3, H, W), got "
             f"{tuple(frames.shape)} with strides {frames.stride()}"
         )
-    bf16 = frames.dtype == torch.bfloat16
-    multiple = 8 if bf16 else 4
+    multiple = 8 if frames.dtype == torch.bfloat16 else 4
     c_out = w.shape[0]
     if tuple(w.shape) != (c_out, 3, 7, 7) or c_out % multiple or not 0 < c_out <= MAX_C_OUT:
         raise ValueError(f"stem_conv: w must be (C, 3, 7, 7) with C % {multiple} == 0 for "
@@ -104,7 +129,13 @@ def stem_conv(frames, w, scale, bias):
     for name, t in (("scale", scale), ("bias", bias)):
         if t.dtype != torch.float32 or tuple(t.shape) != (c_out,) or not t.is_contiguous():
             raise ValueError(f"stem_conv: {name} must be contiguous fp32 ({c_out},)")
+    return StemConvKernel.apply(frames, w, scale, bias)
 
+
+def _launch(frames, w, scale, bias):
+    """One launch of the kernel for ``frames``' dtype on checked inputs."""
+    bf16 = frames.dtype == torch.bfloat16
+    c_out = w.shape[0]
     n, _, h, wd = frames.shape
     if bf16:
         taps = bf16_taps(w)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet, outputs_to_reference
+from object_keypoints_tpu_torch.precision import no_tf32
 from object_keypoints_tpu_torch.serving.weights import (
     keypoint_net_state_dict,
     keypoint_net_variables,
@@ -119,20 +120,25 @@ def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda"):
     """Eval-mode reference-contract inference: NCHW frames in, (sigmoid
     heatmaps, depth, centers) of the last stack out, float32 and contiguous.
 
-    Moves ``model`` (in place) to ``device`` and ``dtype``, channels_last,
-    eval mode. The stem runs the CUDA stem kernel on a CUDA device. It serves
-    on the card unless ``device="cpu"`` is asked for, and raises where a CUDA
-    device is asked for and there is none."""
+    Moves ``model`` (in place) to ``device``, channels_last, eval mode; its
+    parameters and BatchNorm statistics stay float32. ``dtype`` is the
+    compute dtype, the JAX package's rule (``precision``): bfloat16 frames
+    through bf16 convolutions and float32 BatchNorm. A float32 forward runs
+    with TF32 off whatever the process's flags say. The stem runs the CUDA
+    stem kernel on a CUDA device. It serves on the card unless
+    ``device="cpu"`` is asked for, and raises where a CUDA device is asked
+    for and there is none."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"make_inference_fn: device {str(device)!r} asked for, but CUDA "
                            "is not available; pass device='cpu' to serve on the CPU")
-    model.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
+    model.to(device=device, memory_format=torch.channels_last).eval()
 
     @torch.inference_mode()
     def infer(frames):
         x = torch.as_tensor(frames).to(device=device, dtype=dtype).contiguous()
-        outs = outputs_to_reference(model(x), stack=-1)
+        with no_tf32():
+            outs = outputs_to_reference(model(x), stack=-1)
         return tuple(t.float().contiguous() for t in outs)
 
     return infer

@@ -9,14 +9,21 @@
   within a pixel tolerance, 3D within ``stereo_3d_tolerance``).
 - ``synthetic_sequence_in_memory``: a synthetic sequence whose poses and
   frames stay in memory, for machines without h5py.
+- ``synthetic_datasets``: ``SceneDataset``s over such sequences, what
+  ``training.device_data.build_device_store`` takes.
+- ``synthetic_batch``: a seeded train batch of Gaussian-blob targets, the
+  batch of tests/test_training.py made with numpy, for both packages.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from object_keypoints_tpu_torch.data.encode import SequenceWriter
+from object_keypoints_tpu_torch.data.scene import SceneDataset
 from object_keypoints_tpu_torch.data.synthetic import synthetic_recording
 from object_keypoints_tpu_torch.geometry import cameras, stereo
 
@@ -139,15 +146,49 @@ def compare_stereo(got, want, what: str, atol_2d: float = 1e-4, flat_to: float =
 
 
 def synthetic_sequence_in_memory(out_dir: str, calibration_file: str, keypoint_config,
-                                 n_frames: int, seed: int = 0):
+                                 n_frames: int, seed: int = 0, n_objects: int = 1):
     """A synthetic sequence (``data.synthetic.synthetic_recording``) with
     only its labels on disk: writes calibration.yaml and keypoints.json into
     ``out_dir`` (neither needs cv2 or h5py) and returns the ``recording``
     (poses, RGB uint8 frames) that ``evaluation.Sequence`` and
     ``SceneDataset`` take in place of data.hdf5 and frames.mp4."""
     world_points, poses, frames = synthetic_recording(calibration_file, keypoint_config,
-                                                      n_frames=n_frames, seed=seed)
+                                                      n_objects, n_frames=n_frames, seed=seed)
     labels = SequenceWriter(out_dir, preview=False)  # no frames: nothing to close
     labels.write_calibration(calibration_file)
     labels.write_keypoints(world_points)
     return poses, list(frames)
+
+
+def synthetic_datasets(root: str, calibration_file: str, keypoint_config, n_sequences: int,
+                       n_frames: int, n_objects: int = 1, seed: int = 0) -> list:
+    """``n_sequences`` synthetic sequences held in memory under ``root``
+    (seeds ``seed``, ``seed`` + 1, ...), each as a ``SceneDataset`` with
+    augmentation and normalization off: raw uint8 frames, the device
+    store's input."""
+    datasets = []
+    for i in range(n_sequences):
+        seq_dir = os.path.join(root, f"seq_{i:02d}")
+        recording = synthetic_sequence_in_memory(seq_dir, calibration_file, keypoint_config,
+                                                 n_frames, seed + i, n_objects)
+        datasets.append(SceneDataset(seq_dir, {"keypoint_config": list(keypoint_config)},
+                                     normalize=False, recording=recording))
+    return datasets
+
+
+def synthetic_batch(seed: int = 0, n: int = 2, size: int = 32, k: int = 3) -> dict:
+    """A consistent (frame, targets) train batch in the data layer's layout
+    (numpy, NHWC): noise frames (n, size, size, 3) with a std of 0.1,
+    Gaussian blobs on (size / 8)^2 heatmaps at fixed places, depth 1.5 x the
+    heatmaps, centers (.., k - 1, 2) holding 0.5 in x."""
+    h = w = size // 8
+    frame = (np.random.default_rng(seed).normal(size=(n, size, size, 3)) * 0.1).astype(np.float32)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    heat = np.zeros((n, h, w, k), np.float32)
+    for i in range(k):
+        cy, cx = (i + 1) % h, (2 * i + 1) % w
+        heat[..., i] = np.exp(-((ys - cy) ** 2 + (xs - cx) ** 2) / 2.0)[None]
+    centers = np.zeros((n, h, w, k - 1, 2), np.float32)
+    centers[..., 0] = 0.5
+    return {"frame": frame, "heatmaps": heat, "depth": np.clip(heat * 1.5, 0, None),
+            "centers": centers}

@@ -301,3 +301,173 @@ def test_ground_truth_fast_eval_on_card_matches_cpu(cuda, tmp_path, monkeypatch)
         for name in ("heatmaps", "depth", "centers"):
             torch.testing.assert_close(torch.from_numpy(got[name]), torch.from_numpy(want[name]),
                                        atol=1e-6, rtol=0)
+
+
+# ------------------------------------------------- training slice and repairs
+
+GPU_TINY = dict(heatmaps_out=3, features=8, dropout=0.0, stacks=2, levels=2, dims=(8, 8, 16),
+                mods=(1, 1, 1), stem_features=(8, 8), cnv_dim=8)
+
+
+def _tiny_model(seed):
+    """A tiny KeypointNet with random BatchNorm statistics (8 stem channels,
+    so the bf16 kernel takes it too)."""
+    g = torch.Generator().manual_seed(seed)
+    model = KeypointNet(**GPU_TINY, generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    return model
+
+
+def test_infer_pins_tf32_off_whatever_the_process_flags(cuda, monkeypatch):
+    """With the process's flags at torch's defaults (TF32 on for cuDNN),
+    make_inference_fn's float32 forward equals a TF32-off forward of the same
+    model, and the flags are the process's again after the call."""
+    from object_keypoints_tpu_torch.models.keypoint_net import outputs_to_reference
+    from object_keypoints_tpu_torch.precision import no_tf32
+    from object_keypoints_tpu_torch.serving.export import make_inference_fn
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    model = _tiny_model(5)
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(6)).to(cuda)
+    infer = make_inference_fn(model, device=cuda)
+    got = infer(x)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    with torch.no_grad(), no_tf32():
+        want = outputs_to_reference(model(x), stack=-1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernel_gradients_equal_the_plain_ones(cuda, dtype):
+    """The eval-mode stem on the card is differentiable: the gradients of
+    sum(out * r) for frames, w, scale and bias through the kernel's autograd
+    op equal those through stem_conv_plain (fp32 rel 1e-4; bf16 one output
+    ulp, rtol = atol = 1e-2), and its forward still launches the kernel."""
+    g, w, scale, bias = _stem_args(64, 11, cuda)
+    x = torch.randn(2, 3, 63, 63, generator=g).to(cuda, dtype)
+    r = torch.randn(2, 64, 32, 32, generator=g).to(cuda)
+    grads = []
+    for fn in (stem_conv, stem_conv_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, w, scale, bias)]
+        before = stem_conv.launches
+        out = fn(*leaves)
+        assert out.grad_fn is not None
+        assert stem_conv.launches == before + (fn is stem_conv)
+        grads.append(torch.autograd.grad((out.float() * r).sum(), leaves))
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for name, got, want in zip(("frames", "w", "scale", "bias"), *grads):
+        scale_ = want.float().abs().max().item()
+        torch.testing.assert_close(got.float() / scale_, want.float() / scale_, **tol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_eval_mode_forward_gives_the_stem_and_its_bn_gradients(cuda):
+    """Fine-tuning with BatchNorm frozen: an eval-mode forward on the card
+    runs the stem kernel and gives the stem's conv and BN weight and bias
+    gradients equal to those of the same forward with the plain stem."""
+    model = _tiny_model(7).to(cuda).eval()
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(8)).to(cuda)
+    stem = model.backbone.pre[0]
+    grads = []
+    for kw in ({}, {"stem": stem_conv_plain}):
+        out = model(x, **kw)
+        loss = sum(t.square().sum() for t in (*out.heatmaps, *out.depth))
+        grads.append(torch.autograd.grad(loss, [stem.conv.weight, stem.bn.weight, stem.bn.bias]))
+    for got, want in zip(*grads):
+        assert got.abs().max() > 0
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One float32 step (dropout 0) on the card against the same step on
+    the CPU: loss rel 1e-5, gradients within 1e-4 of each tensor's largest,
+    the BatchNorm running statistics within 1e-4, the AdamW update where
+    |g| > 1e-3 of its tensor's largest within 1e-6. It never waits for the
+    card once warm."""
+    from object_keypoints_tpu_torch.testing import synthetic_batch
+    from object_keypoints_tpu_torch.training import trainer
+
+    batch = synthetic_batch(3, size=64)
+    states = [trainer.create_train_state(_tiny_model(9), trainer.make_optimizer(lr=1e-3),
+                                         device=d) for d in ("cpu", cuda)]
+    results = []
+    for state in states:
+        loss, metrics, grads = trainer.loss_and_grads(state, batch)
+        trainer.apply_gradients(state, grads, loss)
+        results.append((loss, [g.cpu() for g in grads]))
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = results
+    assert card_loss.device.type == "cuda"
+    torch.testing.assert_close(card_loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    for got, want in zip(card_grads, cpu_grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+    for (name, got), want in zip(states[1].model.state_dict().items(),
+                                 states[0].model.state_dict().values()):
+        if "running" in name:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6)
+    for got, want, g in zip(states[1].params, states[0].params, cpu_grads):
+        big = g.abs() > 1e-3 * g.abs().max()
+        torch.testing.assert_close(got.detach().cpu()[big], want.detach()[big], rtol=0, atol=1e-6)
+
+    on_card = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(states[1], on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_device_store_step_never_waits_for_the_card(cuda, tmp_path, monkeypatch):
+    """train_step_device_data with augmentation on the card: once warm, no
+    operation of the step synchronizes with the host; and with augmentation
+    off its loss equals the same step's on the CPU (rel 1e-5)."""
+    from object_keypoints_tpu_torch.testing import synthetic_datasets
+    from object_keypoints_tpu_torch.training import device_data, trainer
+
+    monkeypatch.chdir(ROOT)
+    datasets = synthetic_datasets(str(tmp_path), CALIBRATION, (1, 3), n_sequences=1, n_frames=4,
+                                  n_objects=2, seed=3)
+    tiny = {**GPU_TINY, "stacks": 1}
+    losses = []
+    for device in ("cpu", cuda):
+        store = device_data.build_device_store(datasets, device)
+        model = KeypointNet(**tiny, generator=torch.Generator().manual_seed(4))
+        state = trainer.create_train_state(model, trainer.make_optimizer(), device=device)
+        _, metrics = device_data.train_step_device_data(
+            state, store, torch.tensor([0, 2], device=device), None, (1, 1, 3), augment=False)
+        losses.append(metrics["loss"].cpu())
+    torch.testing.assert_close(losses[1], losses[0], rtol=1e-5, atol=0)
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    indices = torch.tensor([3, 1], device=cuda)
+    device_data.train_step_device_data(state, store, indices, g, (1, 1, 3))  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = device_data.train_step_device_data(state, store, indices, g, (1, 1, 3))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(metrics["loss"]).item()
+
+
+def test_augment_on_card_matches_cpu_under_the_same_draws(cuda):
+    """apply_photometric with the same explicit draws on the card and on the
+    CPU: frames within one uint8 level (pow rounds differently at a level's
+    edge), keypoints equal."""
+    from object_keypoints_tpu_torch.data import augment_device
+
+    rng = numpy.random.default_rng(12)
+    frames = torch.from_numpy(rng.integers(0, 256, size=(4, 48, 40, 3), dtype=numpy.uint8))
+    kps = torch.from_numpy(rng.uniform(0, 39, size=(4, 6, 2)).astype(numpy.float32))
+    draws = augment_device.draw_photometric(4, 48, 40, torch.Generator().manual_seed(1))
+    cpu = augment_device.apply_photometric(frames, kps, draws)
+    card = augment_device.apply_photometric(frames.to(cuda), kps.to(cuda),
+                                            type(draws)(*(t.to(cuda) for t in draws)))
+    assert (card[0].cpu() - cpu[0]).abs().max() <= 1.0
+    assert torch.equal(card[1].cpu(), cpu[1])
