@@ -9,8 +9,9 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
 3. the two stem kernels against their plain version: the fp32 CUDA-core
    kernel (TF32 off, atol 1e-4) at (16, 3, 511, 511) and at the eval
    batch's (8, 3, 511, 511), the bf16 tensor-core
-   kernel (one output ulp, stated as rtol = atol = 1e-2) at (16, 3, 511, 511)
-   and at the serve step's (96, 3, 511, 511); median times of the kernel, the
+   kernel (one output ulp, stated as rtol = atol = 1e-2) at (16, 3, 511, 511),
+   at the bf16 eval_step's (8, 3, 511, 511) and at the serve step's
+   (96, 3, 511, 511); median times of the kernel, the
    plain version, cuDNN's conv alone and cuDNN's conv + BN + ReLU as
    separate ops (CUDA events around runs of back-to-back calls), each
    kernel's bound (its bytes at 3.35 TB/s against its FLOP at the peak for
@@ -64,11 +65,16 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    KeypointNet: float32 (TF32 off) and bf16 (bf16 compute over float32
    parameters and BatchNorm) step times by CUDA events and by host clock
    over 20 warm steps, frames/s, peak memory, the device's busy share of
-   one traced step, and a check that a warm step never waits for the card
-   (``torch.cuda.set_sync_debug_mode("error")``); the loss over 100 bf16
-   steps, finite and falling (the mean of the last 10 below the first 10);
-   one float32 step at batch 2 (augment and dropout off) on the card
-   against the same step on the CPU; eval_step in float32 and in bf16,
+   one traced step, the host's time in each part of a step (the data
+   suffix, forward and backward, the optimizer, the wait) through the
+   public calls the step is made of, and a check that a warm step never
+   waits for the card (``torch.cuda.set_sync_debug_mode("error")``); the
+   loss over 100 bf16 steps, finite and falling (the mean of the last 10
+   below the first 10); one float32 step at batch 2 (augment and dropout
+   off) on the card against the same step on the CPU and in float64, with
+   a control beside it: the card's step with TF32 on and its pin taken
+   away, which must miss float64 by more than the gradient gate allows;
+   eval_step in float32 and in bf16,
    each launching the stem kernel of its dtype once; the trained bf16
    weights through export_model -> load_inference_fn (float32) -> decode,
    equal to the CPU decode of the same maps.
@@ -84,6 +90,7 @@ wrapper counts launches in all and per kernel; phases 4, 5, 6, 8 and 9
 after, and the kernels' line gives each kernel's launches from those runs.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -227,9 +234,11 @@ def phase_stem_kernel():
 def stem_kernel_rows(stem_conv, stem_conv_plain):
     gen = torch.Generator().manual_seed(SEED)
     result = {}
-    for n, dtype, atol, rtol in ((16, torch.float32, 1e-4, 0.0), (EVAL_BATCH, torch.float32, 1e-4, 0.0),
-                                 (16, torch.bfloat16, 1e-2, 1e-2),
-                                 (2 * PAIRS, torch.bfloat16, 1e-2, 1e-2)):
+    # 16 frames, then every batch a main path gives each kernel: fp32 the
+    # eval's and eval_step's, bf16 eval_step's and the serve step's (last)
+    fp32 = [(n, torch.float32, 1e-4, 0.0) for n in (16, *sorted({EVAL_BATCH, TRAIN_BATCH}))]
+    bf16 = [(n, torch.bfloat16, 1e-2, 1e-2) for n in (16, TRAIN_BATCH, 2 * PAIRS)]
+    for n, dtype, atol, rtol in fp32 + bf16:
         name = STEM_KERNELS[dtype]
         x, w, scale, bias = stem_inputs(n, dtype, gen)
         before = stem_counts()
@@ -713,6 +722,7 @@ def phase_train(card):
     from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
     from object_keypoints_tpu_torch.pipeline.decode import CameraArrays, decode_objects_batch
     from object_keypoints_tpu_torch.serving.export import export_model, load_inference_fn
+    from object_keypoints_tpu_torch.precision import no_tf32
     from object_keypoints_tpu_torch.testing import serve_rig, synthetic_datasets
     from object_keypoints_tpu_torch.training import device_data, trainer
 
@@ -733,26 +743,22 @@ def phase_train(card):
         return torch.randperm(store.n_frames, generator=order, device="cuda")[:TRAIN_BATCH]
 
     def step_parts(state, gen):
-        """One augmented step from the parts train_step_device_data runs, the
-        host clock around each: the host's ms to enqueue the data suffix, the
-        forward and loss, the backward and the optimizer, then its wait for
-        the card."""
-        from object_keypoints_tpu_torch.precision import no_tf32
-
+        """One augmented step as train_step_device_data runs it, through the
+        same public calls it composes (device_batch, then train_step's
+        loss_and_grads and apply_gradients), the host clock around each:
+        the host's ms to enqueue the data suffix, the forward and backward,
+        the optimizer, then its wait for the card."""
         torch.cuda.synchronize()
         marks = [time.perf_counter()]
         batch = device_data.device_batch(store, indices(), config, generator=gen)
         marks.append(time.perf_counter())
-        with no_tf32():
-            loss, _, _ = trainer.loss_and_metrics(state.model, batch, True, state.dtype, gen)
-            marks.append(time.perf_counter())
-            grads = list(torch.autograd.grad(loss, state.params))
+        loss, _, grads = trainer.loss_and_grads(state, batch, gen)
         marks.append(time.perf_counter())
-        trainer.apply_gradients(state, grads, loss.detach())
+        trainer.apply_gradients(state, grads, loss)
         marks.append(time.perf_counter())
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        names = ("data", "forward", "backward", "optimizer", "wait")
+        names = ("data", "forward_backward", "optimizer", "wait")
         return {n: 1e3 * (b - a) for n, a, b in zip(names, marks, marks[1:])}
 
     def run(dtype, steps, timed):
@@ -797,11 +803,11 @@ def phase_train(card):
     assert all(p.dtype == torch.float32 for p in state16.model.parameters())
 
     # one fp32 step, batch 2, augment and dropout off: the card against the
-    # CPU, and each against the same step in float64 on the CPU (the witness)
+    # CPU, and each against the same step in float64 on the CPU (the witness);
+    # last, the control: the card's step with TF32 on and its pin taken away
     init = state_dict_to(make_model(dropout=0.0), "cpu")
-    sides = []
-    for dtype, st, device in ((torch.float32, store, "cuda"), (torch.float32, store_cpu, "cpu"),
-                              (torch.float64, store_cpu, "cpu")):
+
+    def one_step(dtype, st, device, tf32=False):
         mdl = make_model(dropout=0.0)
         mdl.load_state_dict(init)
         state = trainer.create_train_state(mdl.to(dtype), trainer.make_optimizer(lr=TRAIN_LR),
@@ -809,12 +815,23 @@ def phase_train(card):
         batch = device_data.device_batch(st, torch.tensor([0, 1], device=device), config,
                                          augment=False)
         t0 = time.perf_counter()
-        loss, metrics, grads = trainer.loss_and_grads(state, batch)
+        if tf32:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            trainer.no_tf32 = contextlib.nullcontext
+        try:
+            loss, _, grads = trainer.loss_and_grads(state, batch)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            trainer.no_tf32 = no_tf32
         trainer.apply_gradients(state, grads, loss)
-        sides.append((loss.cpu().double(), [g.cpu().double() for g in grads],
-                      {k: v.double() for k, v in state_dict_to(mdl, "cpu").items()},
-                      time.perf_counter() - t0))
-    (card_loss, card_grads, card_sd, _), (cpu_loss, cpu_grads, cpu_sd, cpu_s), exact = sides
+        return (loss.cpu().double(), [g.cpu().double() for g in grads],
+                {k: v.double() for k, v in state_dict_to(mdl, "cpu").items()},
+                time.perf_counter() - t0)
+
+    sides = [one_step(torch.float32, store, "cuda"), one_step(torch.float32, store_cpu, "cpu"),
+             one_step(torch.float64, store_cpu, "cpu"),
+             one_step(torch.float32, store, "cuda", tf32=True)]
+    (card_loss, card_grads, card_sd, _), (cpu_loss, cpu_grads, cpu_sd, cpu_s), exact, tf32 = sides
 
     def grad_error(grads, want):
         """The gradient's error as a share of the whole gradient's norm, and
@@ -829,10 +846,13 @@ def phase_train(card):
     grad_rel, grad_tensor_rel = grad_error(card_grads, cpu_grads)
     card_vs_f64, card_vs_f64_tensor = grad_error(card_grads, exact[1])
     cpu_vs_f64, cpu_vs_f64_tensor = grad_error(cpu_grads, exact[1])
+    tf32_vs_f64, tf32_vs_f64_tensor = grad_error(tf32[1], exact[1])
     stats_rel = max(((card_sd[k] - cpu_sd[k]).abs().max() / cpu_sd[k].abs().max()).item()
                     for k in cpu_sd if "running" in k)
     assert loss_rel <= 1e-5 and grad_rel <= 1e-2 and card_vs_f64 <= 1e-2 and stats_rel <= 1e-3, (
         loss_rel, grad_rel, card_vs_f64, stats_rel)
+    # the control must fail the gradient gate, or the gate cannot see TF32
+    assert tf32_vs_f64 > 1e-2, ("the TF32 control passes the gate", tf32_vs_f64)
 
     # eval_step on the card: the eval-mode stem runs the kernel of its dtype
     launches = {}
@@ -874,12 +894,16 @@ def phase_train(card):
                          cpu_vs_float64=cpu_vs_f64, cpu_vs_float64_worst_tensor=cpu_vs_f64_tensor,
                          float64_loss_rel=abs(cpu_loss.item() - exact[0].item()) / exact[0].item(),
                          running_stats_rel=stats_rel, cpu_step_s=cpu_s, cpu_float64_step_s=exact[3],
+                         tf32_control_vs_float64=tf32_vs_f64,
+                         tf32_control_vs_float64_worst_tensor=tf32_vs_f64_tensor,
+                         tf32_control_loss_rel=abs(tf32[0].item() - exact[0].item()) / exact[0].item(),
                          tolerance="loss rel 1e-5; the whole gradient within 1e-2 of its norm, card "
                                    "vs CPU and card vs the float64 step (cuDNN's float32 step moves "
                                    "by run: 9.5e-4 to 1.6e-3 of the norm seen; single tensors, which "
                                    "float32 misses by a few % where BatchNorm divides by small "
                                    "batch variances, are reported, not held); each running "
-                                   "statistic within 1e-3 of its tensor's largest"),
+                                   "statistic within 1e-3 of its tensor's largest; the TF32 "
+                                   "control beyond 1e-2 of the norm from float64"),
         eval_step_stem_launches=launches, trained_decode_valid_centers=int(decoded.center_valid.sum()),
         process_tf32_flags=dict(cudnn=flags[0], matmul=flags[1]), card=card)
     return eval_launches

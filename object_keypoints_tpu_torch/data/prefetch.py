@@ -62,7 +62,7 @@ def device_prefetch(batches: Iterable[dict], device="cuda", buffer_size: int = 2
         finally:
             q.put(_SENTINEL)
 
-    thread = threading.Thread(target=worker, daemon=True)
+    thread = threading.Thread(target=worker, name="device_prefetch", daemon=True)
     thread.start()
     try:
         while True:

@@ -15,7 +15,9 @@ CPU decode and to the float64 lift of its own pixels as
 2D within 1e-3 px, 3D within 1e-4 m x max(1, (|p| / 1 m)^3).
 """
 
+import contextlib
 import pathlib
+import threading
 
 import numpy
 import pytest
@@ -31,11 +33,13 @@ CALIBRATION = "config/calibration.yaml"
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
+    """The card, with TF32 off for the test's plain comparisons; the
+    process's flags come back after each test."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -341,6 +345,121 @@ def test_infer_pins_tf32_off_whatever_the_process_flags(cuda, monkeypatch):
         want = outputs_to_reference(model(x), stack=-1)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+def _worst_rel(got, want):
+    """The largest |got - want| of any tensor pair, as a share of the
+    largest |want| of its tensor."""
+    return max(((g.double() - w.double()).abs().max() / w.double().abs().max().clamp(min=1e-30)).item()
+               for g, w in zip(got, want))
+
+
+def test_train_and_eval_steps_pin_tf32_off_whatever_the_process_flags(cuda, monkeypatch):
+    """With TF32 on in the process for cuDNN and cuBLAS, one train step's
+    loss and gradients (loss_and_grads, then apply_gradients, as train_step
+    runs them) and eval_step's metrics equal the same calls made under
+    no_tf32(), each tensor within 1e-5 of its largest element, and the
+    process's flags are its own again after them. The control shows that the
+    gate sees TF32: the same calls with the pin taken away miss by more than
+    1e-4 in some tensor. cuDNN is made deterministic so that the three runs
+    choose and order their work alike; a model of 16-64 channels, so that
+    cuDNN takes its tensor-core kernels where TF32 is let in."""
+    from object_keypoints_tpu_torch.precision import no_tf32
+    from object_keypoints_tpu_torch.testing import synthetic_batch
+    from object_keypoints_tpu_torch.training import trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    wide = {**GPU_TINY, "features": 32, "dims": (32, 32, 64), "stem_features": (16, 32),
+            "cnv_dim": 32}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in synthetic_batch(13, size=128).items()}
+
+    def step():
+        model = KeypointNet(**wide, generator=torch.Generator().manual_seed(14))
+        state = trainer.create_train_state(model, trainer.make_optimizer(lr=1e-3), device=cuda)
+        metrics = trainer.eval_step(state, batch)
+        loss, _, grads = trainer.loss_and_grads(state, batch)
+        trainer.apply_gradients(state, grads, loss)
+        return [loss, *metrics.values(), *grads]
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    got = step()
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    with no_tf32():
+        want = step()
+    monkeypatch.setattr(trainer, "no_tf32", contextlib.nullcontext)
+    control = step()
+    assert _worst_rel(got, want) <= 1e-5, _worst_rel(got, want)
+    assert _worst_rel(control, want) > 1e-4, _worst_rel(control, want)
+
+
+def _prefetch_threads():
+    return [t for t in threading.enumerate() if t.name == "device_prefetch" and t.is_alive()]
+
+
+def _host_batches(seed, n):
+    rng = numpy.random.default_rng(seed)
+    return [{"frame": rng.integers(0, 256, size=(8, 256, 256, 3), dtype=numpy.uint8),
+             "heatmaps": rng.normal(size=(8, 256, 256, 3)).astype(numpy.float32)}
+            for _ in range(n)]
+
+
+def test_device_prefetch_copies_batches_to_the_card(cuda):
+    """Seeded host batches through device_prefetch arrive on the card equal
+    to a direct copy; a sum taken on the consumer's stream as soon as a
+    batch is handed over sees the whole copy (the stream waits on the
+    copy's event); the worker thread is gone at the end."""
+    from object_keypoints_tpu_torch.data.prefetch import device_prefetch
+
+    data = _host_batches(15, 6)
+    out = device_prefetch(iter(data), device=cuda, buffer_size=2)
+    for got, want in zip(out, data, strict=True):
+        sums = {k: v.double().sum() for k, v in got.items()}  # enqueued before any sync
+        for k, v in want.items():
+            assert got[k].device.type == "cuda" and got[k].dtype == torch.from_numpy(v).dtype
+            assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+            assert sums[k].item() == pytest.approx(float(v.astype(numpy.float64).sum()), rel=1e-9)
+    assert not _prefetch_threads()
+
+
+def test_device_prefetch_on_the_card_raises_the_loaders_error(cuda):
+    """A loader that fails after two batches: both arrive, then its error
+    is raised on the consumer's side and the worker thread is gone."""
+    from object_keypoints_tpu_torch.data.prefetch import device_prefetch
+
+    data = _host_batches(16, 2)
+
+    def loader():
+        yield from data
+        raise ValueError("loader broke")
+
+    out = device_prefetch(loader(), device=cuda)
+    for want in data:
+        assert torch.equal(next(out)["frame"].cpu(), torch.from_numpy(want["frame"]))
+    with pytest.raises(ValueError, match="loader broke"):
+        next(out)
+    assert not _prefetch_threads()
+
+
+def test_device_prefetch_on_the_card_stops_when_the_consumer_does(cuda):
+    """A consumer that takes one batch of 50 and closes the iterator: the
+    worker stops drawing from the loader and its thread is gone when close()
+    returns."""
+    from object_keypoints_tpu_torch.data.prefetch import device_prefetch
+
+    drawn = []
+    data = _host_batches(17, 1)
+
+    def loader():
+        for i in range(50):
+            drawn.append(i)
+            yield data[0]
+
+    out = device_prefetch(loader(), device=cuda, buffer_size=2)
+    assert torch.equal(next(out)["frame"].cpu(), torch.from_numpy(data[0]["frame"]))
+    out.close()
+    assert not _prefetch_threads()
+    assert len(drawn) <= 1 + 2 + 2, len(drawn)  # the one taken, the buffer, one in hand, one put
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
