@@ -77,7 +77,23 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    eval_step in float32 and in bf16,
    each launching the stem kernel of its dtype once; the trained bf16
    weights through export_model -> load_inference_fn (float32) -> decode,
-   equal to the CPU decode of the same maps.
+   equal to the CPU decode of the same maps;
+10. the training loop (``training.loop.fit``, as the train CLI runs it):
+   the full-width valve KeypointNet in bf16, batch 8, lr 4e-3, on the
+   flagship's in-memory synthetic sequences (2 train x 16 frames, 1 val x
+   16, 2 objects; the device store), 2 epochs (8 steps), log_every 2,
+   ckpt_every 1, TensorBoard on; checks that metrics.jsonl holds the train
+   keys at each logged step and the val keys after each epoch, that best,
+   last, best_val.json, hparams.json, the event file and the export are
+   written, and, with ``torch.cuda.set_sync_debug_mode("warn")``, that no
+   training step waits for the card and the second epoch waits only for its
+   log reads and its val read (checkpoint writes and eval steps apart); then
+   a resume from last for one epoch with a fresh optimizer (the step carries
+   on; a worse val leaves the best as it was), the package CLI (its artifact
+   equal to the loop's export) and the packaged model served on the card,
+   its decode equal to the CPU's; prints the loop's ms a step beside phase
+   9's bare step, the second epoch's wall time, checkpoint write and export
+   ms, the syncs by site, peak memory and the stem launches.
 
 The process's TF32 flags stay at torch's defaults: the port's entry points
 (``infer``, the train and eval steps) pin TF32 off themselves; phases 3 and
@@ -85,19 +101,24 @@ The process's TF32 flags stay at torch's defaults: the port's entry points
 
 Any failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON and ``{"ok": true, "device": {...}}``. The stem
-wrapper counts launches in all and per kernel; phases 4, 5, 6, 8 and 9
-(its eval_steps) each set the counts to 0 before they run and read them
-after, and the kernels' line gives each kernel's launches from those runs.
+wrapper counts launches in all and per kernel; phases 4, 5, 6, 8, 9 (its
+eval_steps) and 10 (the loop's runs and the packaged model's serve) each set
+the counts to 0 before they run and read them after, and the kernels' line
+gives each kernel's launches from those runs.
 """
 
+import collections
 import contextlib
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -111,6 +132,7 @@ CALIBRATION = "config/calibration.yaml"
 TRAIN_FRAMES, TRAIN_SEQUENCES = 32, 2  # 2 objects a frame
 TRAIN_BATCH, TRAIN_LR = 8, 4e-3  # the flagship recipe's
 TRAIN_STEPS, TRAIN_TIMED = 100, 20
+LOOP_SEQUENCES, LOOP_FRAMES = 2, 16  # train sequences, frames a sequence (the val one too)
 STEM_REPLACES = "object_keypoints_tpu/ops/pallas/stem_conv.py:127"
 STEM_SOURCE = "object_keypoints_tpu_torch/csrc/stem_conv.cu"
 # one H100 SXM (NVIDIA's data sheet): HBM rate, dense peak by type
@@ -906,7 +928,196 @@ def phase_train(card):
                                    "control beyond 1e-2 of the norm from float64"),
         eval_step_stem_launches=launches, trained_decode_valid_centers=int(decoded.center_valid.sum()),
         process_tf32_flags=dict(cudnn=flags[0], matmul=flags[1]), card=card)
-    return eval_launches
+    return eval_launches, bf16["step_ms_host"]
+
+
+class Watch:
+    """Host-clock timing of calls to functions that the loop looks up at
+    call time (module globals and class attributes), and the indices in
+    ``caught`` (the sync-debug warnings recorded so far) at each call's start
+    and end: measurement only, every call is passed through."""
+
+    def __init__(self, caught):
+        self.caught, self.calls, self._undo = caught, collections.defaultdict(list), []
+
+    def __call__(self, owner, name):
+        original = getattr(owner, name)
+
+        def watched(*args, **kwargs):
+            start, t0 = len(self.caught), time.perf_counter()
+            try:
+                return original(*args, **kwargs)
+            finally:
+                self.calls[name].append(dict(start=start, end=len(self.caught), t0=t0,
+                                             ms=1e3 * (time.perf_counter() - t0)))
+
+        setattr(owner, name, watched)
+        self._undo.append((owner, name, original))
+
+    def restore(self):
+        for owner, name, original in reversed(self._undo):
+            setattr(owner, name, original)
+
+    def syncs(self, name):
+        return sum(is_sync(w) for c in self.calls[name] for w in self.caught[c["start"]:c["end"]])
+
+
+def is_sync(warning):
+    """A warning of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    return "called a synchronizing CUDA operation" in str(warning.message)
+
+
+def sync_site(warning):
+    return f"{os.path.relpath(warning.filename)}:{warning.lineno}"
+
+
+def phase_loop(card, bare_step_ms):
+    """The training loop, ``training.loop.fit``, on the card: 2 epochs of
+    the full-width valve model in bf16 on in-memory sequences, then a resume,
+    the package CLI and the packaged model served on the card."""
+    from object_keypoints_tpu_torch import evaluation
+    from object_keypoints_tpu_torch.cli import flagship, package_model
+    from object_keypoints_tpu_torch.pipeline.decode import CameraArrays, decode_objects_batch
+    from object_keypoints_tpu_torch.serving.export import load_inference_fn
+    from object_keypoints_tpu_torch.training import checkpoints, loop
+
+    options = {"keypoint_config": list(KEYPOINT_CONFIG)}
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_split = flagship.synthetic_split(f"{tmp}/data", "train", LOOP_SEQUENCES,
+                                               KEYPOINT_CONFIG, LOOP_FRAMES, n_objects=2)
+        val_split = flagship.synthetic_split(f"{tmp}/data", "val", 1, KEYPOINT_CONFIG,
+                                             LOOP_FRAMES, n_objects=2)
+        data_s = time.perf_counter() - t0
+        run = f"{tmp}/run"
+        config = loop.TrainConfig(keypoint_config=list(KEYPOINT_CONFIG), batch_size=TRAIN_BATCH,
+                                  lr=TRAIN_LR, bf16=True, seed=SEED, epochs=2, log_every=2,
+                                  ckpt_every=1, tensorboard=True, out_dir=run)
+
+        def fit(cfg, caught):
+            """loop.fit as a user calls it, watched: the sync-debug warnings
+            it raises, its steps, checkpoint writes and export."""
+            watch = Watch(caught)
+            for owner, name in ((loop, "train_step_device_data"), (loop, "eval_step"),
+                                (loop, "export_model"),
+                                (checkpoints.CheckpointManager, "save_last"),
+                                (checkpoints.CheckpointManager, "flush_best")):
+                watch(owner, name)
+            sets = [loop.sequences([d for d, _ in split], cfg, train, [r for _, r in split])
+                    for split, train in ((train_split, True), (val_split, False))]
+            torch.cuda.reset_peak_memory_stats()
+            reset_stem_counts()  # the main path's run starts here
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                result = loop.fit(cfg, *sets, device="cuda")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                watch.restore()
+            return result, stem_counts(), watch  # ... and ends here
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            result, launches, watch = fit(config, caught)
+            fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = watch.calls["train_step_device_data"]
+        assert result["steps"] == len(steps) == 8, (result, len(steps))
+        assert launches == {"all": 2, "stem_conv_bf16": 2, "stem_conv_fp32": 0}, launches
+        # no training step waits for the card; the warm epoch's syncs, apart
+        # from the checkpoint writes, are the log reads and the val read
+        assert watch.syncs("train_step_device_data") == 0, [
+            sync_site(w) for c in steps for w in caught[c["start"]:c["end"]]]
+        epoch2_start, export = steps[4]["start"], watch.calls["export_model"][0]
+        ckpt_windows = [c for n in ("save_last", "flush_best") for c in watch.calls[n]
+                        if c["start"] >= epoch2_start]
+        apart = {i for c in ckpt_windows + watch.calls["eval_step"]
+                 for i in range(c["start"], c["end"])}
+        epoch2 = collections.Counter(sync_site(caught[i]) for i in range(epoch2_start, export["start"])
+                                     if i not in apart and is_sync(caught[i]))
+        assert sum(epoch2.values()) <= 3, epoch2  # the two log reads and the val read
+
+        names = sorted(os.listdir(run))
+        assert [n for n in names if not n.startswith("events.out.tfevents.")] == [
+            "best.msgpack", "best_val.json", "export", "hparams.json", "last.pt", "metrics.jsonl"]
+        assert len(names) == 7 and sorted(os.listdir(f"{run}/export")) == ["config.json",
+                                                                           "params.msgpack"]
+        with open(f"{run}/metrics.jsonl") as f:
+            logged = [json.loads(line) for line in f]
+        assert [r["step"] for r in logged] == [2, 4, 4, 6, 8, 8], logged
+        train_keys = {"loss", "grad_norm", "lr_scale", "heatmap_loss1", "depth_loss2"}
+        for r in logged:
+            assert train_keys <= set(r) if "loss" in r else {"val_loss", "total_heatmap_loss"} <= set(r)
+            assert all(math.isfinite(v) for v in r.values())
+        losses = [r["loss"] for r in logged if "loss" in r]
+        vals = [r["val_loss"] for r in logged if "val_loss" in r]
+        assert result["best_val_loss"] == min(vals)
+        with open(f"{run}/best_val.json") as f:
+            assert json.load(f) == {"val_loss": min(vals)}
+        loop_step_ms = 1e3 * (logged[4]["time"] - logged[3]["time"]) / 2  # steps 6 -> 8, warm
+        epoch2_ms = 1e3 * (ckpt_windows[-1]["t0"] + ckpt_windows[-1]["ms"] / 1e3 - steps[4]["t0"])
+
+        # resume from last for one epoch, a fresh optimizer, into the same run
+        best_bytes = open(f"{run}/{checkpoints.BEST}", "rb").read()
+        with warnings.catch_warnings(record=True) as resume_caught:
+            warnings.simplefilter("always")
+            resumed, resume_launches, _ = fit(dataclasses.replace(config, resume=run, epochs=1),
+                                              resume_caught)
+        assert resumed["steps"] == 12 and resume_launches["stem_conv_bf16"] == 1, (
+            resumed, resume_launches)
+        with open(f"{run}/metrics.jsonl") as f:
+            logged_after = [json.loads(line) for line in f]
+        assert [r["step"] for r in logged_after[len(logged):]] == [10, 12, 12]
+        resumed_val = logged_after[-1]["val_loss"]
+        last = checkpoints.CheckpointManager(run).restore("last")
+        assert last["step"] == 12 and last["opt_state"]["count"] == 4, last["opt_state"]["count"]
+        if resumed_val >= min(vals):  # a worse val leaves the best as it was
+            assert open(f"{run}/{checkpoints.BEST}", "rb").read() == best_bytes
+            assert resumed["best_val_loss"] == min(vals)
+        else:
+            assert resumed["best_val_loss"] == resumed_val
+            assert int(checkpoints.CheckpointManager(run).restore("best")["step"]) == 12
+
+        # the package CLI: its artifact is the loop's export, and it serves
+        packaged = package_model.main(["--model", run, "--out", f"{tmp}/package", "--which", "best"])
+        for name in ("config.json", "params.msgpack"):
+            with open(f"{tmp}/package/{name}", "rb") as a, open(f"{run}/export/{name}", "rb") as b:
+                assert a.read() == b.read(), name
+        val_dir, recording = val_split[0]
+        seq = evaluation.Sequence(val_dir, options, device="cuda", recording=recording)
+        entries = list(seq.dataset.iter_prefix())[:EVAL_BATCH]
+        infer = load_inference_fn(f"{tmp}/package", device="cuda")
+        frames = evaluation.batch_frames(entries, "cuda")
+        reset_stem_counts()  # the packaged model's serve starts here
+        maps = infer(frames)
+        serve_launches = stem_counts()  # ... and ends here
+        assert serve_launches == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, serve_launches
+        for t in maps:
+            assert t.device.type == "cuda" and torch.isfinite(t).all()
+        cam = seq.camera_small
+        decode_kw = dict(keypoint_config=KEYPOINT_CONFIG, model=cam.distortion_model, max_peaks=16)
+        decoded = decode_objects_batch(*maps, CameraArrays.from_camera(cam, device="cuda"),
+                                       **decode_kw)
+        check_decode_on_cpu("packaged", decoded, maps, cam, decode_kw)
+
+    log("loop", train_frames=LOOP_FRAMES * LOOP_SEQUENCES, val_frames=LOOP_FRAMES,
+        objects=2, batch=TRAIN_BATCH, lr=TRAIN_LR, dtype="bfloat16", epochs=2, steps=8,
+        source="flagship.synthetic_split sequences in memory -> loop.sequences -> loop.fit "
+               "(the device store: the frames fit its budget)",
+        data_s=data_s, fit_s=fit_s, loop_step_ms=loop_step_ms, bare_step_ms_phase9=bare_step_ms,
+        step_host_enqueue_ms=[round(c["ms"], 3) for c in steps], epoch2_wall_ms=epoch2_ms,
+        save_last_ms=[c["ms"] for c in watch.calls["save_last"]],
+        flush_best_ms=[c["ms"] for c in watch.calls["flush_best"]], export_ms=export["ms"],
+        syncs_in_steps=0, syncs_epoch2_outside_checkpoints_and_eval_steps=dict(epoch2),
+        syncs_in_eval_steps=watch.syncs("eval_step"),
+        syncs_in_checkpoint_writes=[watch.syncs("save_last"), watch.syncs("flush_best")],
+        syncs_whole_fit=sum(map(is_sync, caught)), peak_mem_gib=peak, losses=losses, val_losses=vals,
+        resumed_val_loss=resumed_val, best_kept=resumed_val >= min(vals),
+        stem_launches=dict(fit=launches, resume=resume_launches, packaged_serve=serve_launches),
+        packaged_equals_export=True, packaged_valid_centers=int(decoded.center_valid.sum()),
+        phase_s=time.perf_counter() - phase_t0, card=card)
+    return {k: launches[k] + resume_launches[k] + serve_launches[k] for k in launches}
 
 
 def main():
@@ -916,7 +1127,9 @@ def main():
     paths = [phase_full_forward(), phase_serve(card), phase_stereo_serve(card)]
     phase_stereo_scene()
     paths.append(phase_eval(card))
-    paths.append(phase_train(card))
+    train_launches, bare_step_ms = phase_train(card)
+    paths.append(train_launches)
+    paths.append(phase_loop(card, bare_step_ms))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

@@ -2,9 +2,9 @@
 
 The JAX package ``object_keypoints_tpu`` is the reference; this package
 reproduces its two KeypointNet serve paths (depth head and
-stereo-triangulated), its evaluation path and its training step on an NVIDIA
-H100 and keeps its module names, so each module here has a counterpart of
-the same name there:
+stereo-triangulated), its evaluation path and its training (the step, the
+loop, checkpoints and the CLIs) on an NVIDIA H100 and keeps its module
+names, so each module here has a counterpart of the same name there:
 
 models      blocks, fire hourglass, KeypointNet (NCHW)
 ops         stem_conv (CUDA kernel + plain version), decode, associate
@@ -18,11 +18,15 @@ data        scene (SceneDataset), targets (batched target rendering),
             augment, augment_device (batched, on the card), encode
             (SequenceWriter), synthetic sequences, combinators, prefetch
 training    losses, trainer (AdamW + plateau, train and eval steps),
-            device_data (the dataset on the card, train_step_device_data)
+            device_data (the dataset on the card, train_step_device_data),
+            checkpoints (best and last, the port's own files), loop
+            (TrainConfig, train, fit)
 precision   no_tf32: float32 means float32 at every entry point
 evaluation  Sequence, Results, batched and per-frame sequence evaluation
-cli         eval_model, the eval CLI
-utils       vis: heatmap overlays, live viewer
+cli         eval_model, train, package_model (the CLIs of scripts/), and
+            flagship (scripts/flagship_recipe.sh's data, training and eval)
+utils       vis: heatmap overlays, live viewer; metrics (MetricsLogger),
+            tb_events (TensorBoard event files)
 csrc        CUDA C++ kernels, built by ops/_build.py at first use
 
 It imports torch and never jax, flax or object_keypoints_tpu.

@@ -22,6 +22,8 @@ from object_keypoints_tpu_torch.data.encode import SequenceWriter
 from object_keypoints_tpu_torch.geometry import linalg
 from object_keypoints_tpu_torch.geometry.cameras import from_calibration
 
+BLOB_REACH = 10.0  # sigmas
+
 
 def _look_at(eye, target, up=(0.0, -1.0, 0.0)):
     """T_WC with camera z-axis pointed from eye at target."""
@@ -69,6 +71,10 @@ def synthetic_recording(calibration_file: str, keypoint_config: Sequence[int],
     def frames():
         h, w = image_size
         ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+        # A blob is drawn within BLOB_REACH sigmas of its center only: beyond,
+        # it adds less than 1e-19 to a pixel of at least 20, which leaves the
+        # float32 canvas unchanged, so the frame equals the whole-frame sum.
+        reach = int(np.ceil(BLOB_REACH * blob_sigma))
         for T_WC in poses:
             T_CW = linalg.inv_transform(torch.from_numpy(T_WC)).numpy()
             projected = camera.project(world_points, T_CW)
@@ -76,12 +82,14 @@ def synthetic_recording(calibration_file: str, keypoint_config: Sequence[int],
             for k, (px, py) in enumerate(projected):
                 if not (0 <= px < w and 0 <= py < h):
                     continue
-                blob = np.exp(-((xs - px) ** 2 + (ys - py) ** 2) / (2 * blob_sigma**2))
+                win = (slice(max(int(py) - reach, 0), int(py) + reach + 1),
+                       slice(max(int(px) - reach, 0), int(px) + reach + 1))
+                blob = np.exp(-((xs[win] - px) ** 2 + (ys[win] - py) ** 2) / (2 * blob_sigma**2))
                 color = np.array(
                     [120 + 40 * (k % 3), 80 + 50 * ((k + 1) % 3), 200 - 30 * (k % 4)],
                     np.float32,
                 )
-                canvas += blob[..., None] * color[None, None]
+                canvas[win] += blob[..., None] * color[None, None]
             yield np.clip(canvas, 0, 255).astype(np.uint8)
 
     return world_points, poses, frames()
@@ -103,16 +111,22 @@ def write_synthetic_sequence(out_dir: str, calibration_file: str,
     return world_points
 
 
+def sequence_seed(split: str, index: int) -> int:
+    """The seed of sequence ``index`` of ``split`` in a synthetic tree: a
+    crc32 of its name, stable across processes (``hash`` of a str is salted
+    per process)."""
+    return zlib.crc32(f"{split}:{index}".encode()) % (1 << 31)
+
+
 def make_synthetic_dataset_tree(root: str, calibration_file: str,
                                 keypoint_config: Sequence[int],
                                 n_train: int = 2, n_val: int = 1, **kwargs):
     """train/ + val/ sequence trees like the reference's --train/--val
-    directories; each sequence's seed is a crc32 of its name, stable across
-    processes (``hash`` of a str is salted per process)."""
+    directories, sequence i of a split at ``sequence_seed(split, i)``."""
     for split, count in (("train", n_train), ("val", n_val)):
         for i in range(count):
             write_synthetic_sequence(
                 os.path.join(root, split, f"seq_{i:02d}"), calibration_file, keypoint_config,
-                seed=zlib.crc32(f"{split}:{i}".encode()) % (1 << 31), **kwargs,
+                seed=sequence_seed(split, i), **kwargs,
             )
     return os.path.join(root, "train"), os.path.join(root, "val")

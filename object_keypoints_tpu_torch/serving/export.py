@@ -81,7 +81,8 @@ def write_flax_msgpack(tree: dict) -> bytes:
     return msgpack.packb(tree, default=ext, strict_types=True)
 
 
-def _architecture(config: dict):
+def architecture(config: dict) -> dict:
+    """The layout arguments of ``serving.weights``'s name walk in ``config``."""
     return dict(stacks=config.get("stacks", 2), levels=config.get("levels", 4),
                 mods=tuple(config.get("mods", (2, 2, 2, 2, 4))))
 
@@ -93,7 +94,7 @@ def export_model(path: str, config: dict, model) -> None:
     a temporary file and ``os.replace``, so a killed process leaves no
     truncated artifact."""
     state = model.state_dict() if isinstance(model, torch.nn.Module) else model
-    variables = keypoint_net_variables(state, **_architecture(config))
+    variables = keypoint_net_variables(state, **architecture(config))
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, CONFIG_NAME), "wt") as f:
         json.dump(config, f, indent=2)
@@ -111,7 +112,7 @@ def load_model(path: str):
     with open(os.path.join(path, PARAMS_NAME), "rb") as f:
         variables = read_flax_msgpack(f.read())
     model = model_from_config(config)
-    state = keypoint_net_state_dict(variables, **_architecture(config))
+    state = keypoint_net_state_dict(variables, **architecture(config))
     model.load_state_dict(state, strict=True)
     return model, config
 

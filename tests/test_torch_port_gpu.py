@@ -590,3 +590,102 @@ def test_augment_on_card_matches_cpu_under_the_same_draws(cuda):
                                             type(draws)(*(t.to(cuda) for t in draws)))
     assert (card[0].cpu() - cpu[0]).abs().max() <= 1.0
     assert torch.equal(card[1].cpu(), cpu[1])
+
+
+LOOP_TINY = dict(levels=2, dims=(16, 16, 32), mods=(1, 1, 1), stem_features=(8, 16), cnv_dim=16)
+
+
+def _loop_run(tmp_path, **overrides):
+    """A tiny loop run on in-memory sequences (2 train sequences of 4
+    frames, 1 val), bf16: (config, train sets, val sets)."""
+    from object_keypoints_tpu_torch.cli import flagship
+    from object_keypoints_tpu_torch.training import loop
+
+    train_split = flagship.synthetic_split(str(tmp_path / "data"), "train", 2, [1, 3], 4)
+    val_split = flagship.synthetic_split(str(tmp_path / "data"), "val", 1, [1, 3], 4)
+    config = loop.TrainConfig(keypoint_config=[1, 3], batch_size=2, features=8, dropout=0.0,
+                              lr=1e-3, bf16=True, epochs=2, out_dir=str(tmp_path / "run"),
+                              model_overrides=LOOP_TINY, **overrides)
+    sets = [loop.sequences([d for d, _ in split], config, train, [r for _, r in split])
+            for split, train in ((train_split, True), (val_split, False))]
+    return config, *sets
+
+
+def test_loop_on_the_card_checkpoints_and_exports(cuda, tmp_path, monkeypatch):
+    """loop.fit on the card (the device store, bf16): best and last written,
+    the bf16 stem kernel launched by each epoch's eval_step, and the export
+    serves on the card as on the CPU (float32, atol 1e-4)."""
+    from object_keypoints_tpu_torch.serving.export import load_inference_fn
+    from object_keypoints_tpu_torch.training import checkpoints, loop
+
+    monkeypatch.chdir(ROOT)
+    config, train_sets, val_sets = _loop_run(tmp_path)
+    before = stem_conv.launches_bf16
+    result = loop.fit(config, train_sets, val_sets, device=cuda)
+    assert stem_conv.launches_bf16 == before + 2
+    assert result["steps"] == 8 and numpy.isfinite(result["best_val_loss"])
+    ckpt = checkpoints.CheckpointManager(config.out_dir)
+    assert ckpt.best_val == result["best_val_loss"]
+    assert ckpt.restore("last")["step"] == 8
+    frames = torch.randn(2, 3, 511, 511, generator=torch.Generator().manual_seed(2))
+    card = load_inference_fn(result["export_dir"], device=cuda)(frames.to(cuda))
+    cpu = load_inference_fn(result["export_dir"], device="cpu")(frames)
+    for got, want in zip(card, cpu):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_deferred_best_on_the_card_is_a_copy(cuda, tmp_path):
+    """The optimizer updates the parameters on the card in place; the
+    deferred best keeps the weights of its epoch."""
+    from object_keypoints_tpu_torch.testing import synthetic_batch
+    from object_keypoints_tpu_torch.training import checkpoints, trainer
+
+    state = trainer.create_train_state(_tiny_model(5), trainer.make_optimizer(lr=1e-3),
+                                       device=cuda)
+    hparams = {"keypoint_config": [1, 3], "features": GPU_TINY["features"],
+               "model_overrides": {k: v for k, v in GPU_TINY.items()
+                                   if k in ("stacks", "levels", "dims", "mods",
+                                            "stem_features", "cnv_dim")}}
+    ckpt = checkpoints.CheckpointManager(str(tmp_path), hparams=hparams)
+    before = {k: v.cpu().clone() for k, v in state.model.state_dict().items()}
+    assert ckpt.save_if_best(state, 0, 0.5, defer=True)
+    trainer.train_step(state, synthetic_batch(1, size=64))
+    moved = [k for k, v in state.model.state_dict().items()
+             if v.is_floating_point() and not torch.equal(v.cpu(), before[k])]
+    assert moved
+    ckpt.flush_best()
+    best, step = ckpt.restore_state_dict("best")
+    assert step == 0
+    for k in moved:
+        assert torch.equal(best[k], before[k]), k
+
+
+def test_warm_loop_steps_never_wait_for_the_card(cuda, tmp_path, monkeypatch):
+    """From the second step of the loop on to the first validation, the
+    loop runs under set_sync_debug_mode("error"): its steps, the order
+    slices and its bookkeeping never wait for the card (no log read falls
+    in that span: log_every is past the epoch)."""
+    from object_keypoints_tpu_torch.training import loop
+
+    monkeypatch.chdir(ROOT)
+    config, train_sets, val_sets = _loop_run(tmp_path, log_every=100)
+    step, evaluate, calls = loop.train_step_device_data, loop.eval_step, []
+
+    def strict_step(*args, **kwargs):
+        if calls:
+            torch.cuda.set_sync_debug_mode("error")
+        calls.append(1)
+        return step(*args, **kwargs)
+
+    def relaxed_eval(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("default")
+        return evaluate(*args, **kwargs)
+
+    monkeypatch.setattr(loop, "train_step_device_data", strict_step)
+    monkeypatch.setattr(loop, "eval_step", relaxed_eval)
+    try:
+        result = loop.fit(config, train_sets, val_sets, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(calls) == result["steps"] == 8

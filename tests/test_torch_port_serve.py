@@ -148,9 +148,10 @@ def test_port_never_imports_jax(tmp_path):
         "from object_keypoints_tpu_torch.data import augment, encode, scene, synthetic, targets\n"
         "from object_keypoints_tpu_torch.data import augment_device, combinators, prefetch\n"
         "from object_keypoints_tpu_torch.training import device_data, losses, trainer\n"
+        "from object_keypoints_tpu_torch.training import checkpoints, loop\n"
         "from object_keypoints_tpu_torch import precision\n"
-        "from object_keypoints_tpu_torch.utils import vis\n"
-        "from object_keypoints_tpu_torch.cli import eval_model\n"
+        "from object_keypoints_tpu_torch.utils import metrics, tb_events, vis\n"
+        "from object_keypoints_tpu_torch.cli import eval_model, flagship, package_model, train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'object_keypoints_tpu'))\n"
         "print(json.dumps(bad))\n"
