@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one CUDA card: serve, eval and train paths.
+"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train and int8 paths.
 
     python3 chip_smoke.py
 
@@ -91,9 +91,29 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    a resume from last for one epoch with a fresh optimizer (the step carries
    on; a worse val leaves the best as it was), the package CLI (its artifact
    equal to the loop's export) and the packaged model served on the card,
-   its decode equal to the CPU's; prints the loop's ms a step beside phase
-   9's bare step, the second epoch's wall time, checkpoint write and export
-   ms, the syncs by site, peak memory and the stem launches.
+   its decode equal to the CPU's; the package CLI again with ``--quantize``
+   (no sequence directory is readable there, so it calibrates on its
+   unit-normal fallback), its artifact served int8 through "auto" and its
+   decode equal to the CPU's; prints the loop's ms a step beside phase 9's
+   bare step, the second epoch's wall time, checkpoint write and export ms,
+   the syncs by site, peak memory and the stem launches;
+11. int8 serving (``serving.quantize``, ``ops.int8_conv``): the full-width
+   valve model in bf16 calibrated on bench.py's 8 synthetic frames (keypoints
+   (1, 3), seed 7, in memory through SceneDataset's 511 resize), its keys
+   equal to the name walk's eligible convs; each distinct int8 conv shape of
+   the default placement at 96 frames, plus hg_0's up2 unpool: the GEMM
+   route's int32 sums equal to the plain version's, the route's and its
+   im2col's ms, cuDNN's bf16 conv of the same shape, the route's TOP/s and
+   its share of the card's dense int8 peak; the int8 depth-head and stereo
+   serve steps in bench.py's int8 mode (bf16 with int8 convs, 48 pairs, the
+   decode settings of phases 5 and 6): pairs/s, step ms, the forward's ms in
+   turns with the bf16 forward's, device ops per forward, peak memory, the
+   max |int8 - bf16| of the maps, every stem launch on the bf16 kernel and
+   the card's decode equal to the CPU's; the artifact route (export_model
+   with quant.json -> load_inference_fn "auto" in float32, one fp32 stem
+   launch, within tests/test_quantize.py's budgets of the CPU's int8
+   forward; "never" equal to the float path; "require" without quant.json
+   raises FileNotFoundError).
 
 The process's TF32 flags stay at torch's defaults: the port's entry points
 (``infer``, the train and eval steps) pin TF32 off themselves; phases 3 and
@@ -102,9 +122,12 @@ The process's TF32 flags stay at torch's defaults: the port's entry points
 Any failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON and ``{"ok": true, "device": {...}}``. The stem
 wrapper counts launches in all and per kernel; phases 4, 5, 6, 8, 9 (its
-eval_steps) and 10 (the loop's runs and the packaged model's serve) each set
-the counts to 0 before they run and read them after, and the kernels' line
-gives each kernel's launches from those runs.
+eval_steps), 10 (the loop's runs and the packaged models' serves) and 11
+(the int8 serve steps and the int8 artifact's serve) each set the counts to
+0 before they run and read them after, and the kernels' line gives each
+kernel's launches from those runs. The int8 convolutions run on cuBLASLt's
+int8 GEMM, not on a kernel of this repository, so they are not in that line;
+phase 11 counts their launches apart.
 """
 
 import collections
@@ -433,6 +456,25 @@ def device_events(fn):
         torch.cuda.synchronize()
     return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                   if e.device_type == DeviceType.CUDA)
+
+
+def device_ms_by_name(fn, top=14):
+    """The device time of one call of fn by kernel name, from torch.profiler
+    tracing the card alone: the ``top`` names by total ms, with counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    totals = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            totals[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+            totals[e.name][1] += 1
+    rows = sorted(totals.items(), key=lambda kv: -kv[1][0])
+    return {"total_ms": sum(ms for ms, _ in totals.values()),
+            "top": [{"name": name[:100], "ms": ms, "count": n} for name, (ms, n) in rows[:top]]}
 
 
 def busy_us(ops):
@@ -1101,6 +1143,25 @@ def phase_loop(card, bare_step_ms):
                                        **decode_kw)
         check_decode_on_cpu("packaged", decoded, maps, cam, decode_kw)
 
+        # the package CLI with --quantize: no h5py and no sequence directory
+        # here, so it calibrates on the unit-normal fallback; served "auto"
+        t0 = time.perf_counter()
+        quantized = package_model.main(["--model", run, "--out", f"{tmp}/package_int8",
+                                        "--which", "best", "--quantize"])
+        quantize_s = time.perf_counter() - t0
+        assert sorted(os.listdir(f"{tmp}/package_int8")) == ["config.json", "params.msgpack",
+                                                              "quant.json"]
+        infer_int8 = load_inference_fn(f"{tmp}/package_int8", device="cuda")
+        reset_stem_counts()  # the int8 packaged model's serve starts here
+        maps_int8 = infer_int8(frames)
+        int8_launches = stem_counts()  # ... and ends here
+        assert int8_launches == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, int8_launches
+        for t in maps_int8:
+            assert t.device.type == "cuda" and torch.isfinite(t).all()
+        camera = CameraArrays.from_camera(cam, device="cuda")
+        decoded_int8 = decode_objects_batch(*maps_int8, camera, **decode_kw)
+        check_decode_on_cpu("packaged int8", decoded_int8, maps_int8, cam, decode_kw)
+
     log("loop", train_frames=LOOP_FRAMES * LOOP_SEQUENCES, val_frames=LOOP_FRAMES,
         objects=2, batch=TRAIN_BATCH, lr=TRAIN_LR, dtype="bfloat16", epochs=2, steps=8,
         source="flagship.synthetic_split sequences in memory -> loop.sequences -> loop.fit "
@@ -1114,10 +1175,297 @@ def phase_loop(card, bare_step_ms):
         syncs_in_checkpoint_writes=[watch.syncs("save_last"), watch.syncs("flush_best")],
         syncs_whole_fit=sum(map(is_sync, caught)), peak_mem_gib=peak, losses=losses, val_losses=vals,
         resumed_val_loss=resumed_val, best_kept=resumed_val >= min(vals),
-        stem_launches=dict(fit=launches, resume=resume_launches, packaged_serve=serve_launches),
+        stem_launches=dict(fit=launches, resume=resume_launches, packaged_serve=serve_launches,
+                           packaged_int8_serve=int8_launches),
         packaged_equals_export=True, packaged_valid_centers=int(decoded.center_valid.sum()),
+        packaged_int8=dict(quantized_convs=quantized["quantized_convs"], seconds=quantize_s,
+                           calibration="unit-normal fallback", stem_launches=int8_launches,
+                           valid_centers=int(decoded_int8.center_valid.sum())),
         phase_s=time.perf_counter() - phase_t0, card=card)
-    return {k: launches[k] + resume_launches[k] + serve_launches[k] for k in launches}
+    return {k: launches[k] + resume_launches[k] + serve_launches[k] + int8_launches[k]
+            for k in launches}
+
+
+INT8_CALIBRATION = dict(n_frames=8, seed=7)  # bench.py's _calibration_batch
+# one H100 SXM (NVIDIA's data sheet): dense int8 tensor-core peak, operations/s
+PEAK_INT8_OPS = 1979e12
+INT8_BUDGETS = {"heat": 0.02, "depth": 0.005, "centers": 0.25}  # tests/test_quantize.py
+INT8_TIMED = 10
+
+
+def int8_counts():
+    from object_keypoints_tpu_torch.ops import int8_conv
+
+    return {"int8_conv2d": int8_conv.int8_conv2d.launches,
+            "int8_conv_transpose2d": int8_conv.int8_conv_transpose2d.launches}
+
+
+def reset_int8_counts():
+    from object_keypoints_tpu_torch.ops import int8_conv
+
+    int8_conv.int8_conv2d.launches = int8_conv.int8_conv_transpose2d.launches = 0
+
+
+def int8_shape_rows(model, scales, frames):
+    """Each distinct int8 conv geometry of the default placement (its input
+    recorded by a hook on a forward of ``frames``), plus hg_0's up2 unpool,
+    quantized at its calibrated scale: the GEMM route's int32 sums against
+    the plain version's (exact), the route's ms and its im2col's alone,
+    cuDNN's bf16 conv of the same shape, and the route's TOP/s against the
+    card's dense int8 peak."""
+    from object_keypoints_tpu_torch.ops import int8_conv
+    from object_keypoints_tpu_torch.serving.quantize import Int8Conv
+
+    seen, handles = {}, []
+
+    def record(module, args):
+        x = args[0]
+        key = (module.transpose, tuple(x.shape[1:]), module.out_channels, module.kernel_size,
+               module.stride, module.padding)
+        seen.setdefault(key, (module, []))[1].append(module.path)
+
+    up2 = Int8Conv(model.backbone.hgs[0].up2, scales["backbone/hg_0/up2"], "backbone/hg_0/up2")
+    for m in [*(m for m in model.modules() if isinstance(m, Int8Conv)), up2]:
+        handles.append(m.register_forward_pre_hook(record))
+    with torch.inference_mode():
+        model.backbone.hgs[0].up2, float_up2 = up2, model.backbone.hgs[0].up2
+        try:
+            model(frames)
+        finally:
+            model.backbone.hgs[0].up2 = float_up2
+            for h in handles:
+                h.remove()
+    torch.cuda.synchronize()
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for (transpose, (c, h, w), o, k, s, p), (module, paths) in seen.items():
+        n = frames.shape[0]
+        xq = torch.randint(-127, 128, (n, h, w, c), generator=gen, dtype=torch.int8, device="cuda")
+        wq, packed = module.int8_weight(), module.packed
+        if transpose:
+            def route():
+                return int8_conv.int8_conv_transpose2d_gemm(xq, packed, o)
+
+            def columns():  # one chunk at a time, as the route gathers them
+                for _ in int8_conv.conv_transpose_im2col_chunks(xq):
+                    pass
+
+            def plain():
+                return int8_conv.int8_conv_transpose2d_plain(xq, wq)
+
+            def cudnn():
+                return torch.nn.functional.conv_transpose2d(xb, wb, stride=2, padding=1)
+
+            wb = wq.to(torch.bfloat16)
+            ho, wo, taps = 2 * h, 2 * w, 4 * c
+        else:
+            def route():
+                return int8_conv.int8_conv2d_gemm(xq, packed, o, k, s, p)
+
+            def columns():
+                for _ in int8_conv.im2col_chunks(xq, k, s, p):
+                    pass
+
+            def plain():
+                return int8_conv.int8_conv2d_plain(xq, wq, s, p)
+
+            def cudnn():
+                return torch.nn.functional.conv2d(xb, wb, stride=s, padding=p)
+
+            wb = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            ho, wo, taps = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1, k * k * c
+        got = route()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        assert torch.equal(got, want), ("int8 route != plain", paths)
+        del got, want
+        xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels_last NCHW
+        ms = kernel_ms(route, launches=3, runs=3)
+        ops = 2.0 * n * ho * wo * taps * o
+        rows.append(dict(
+            convs=paths, transpose=transpose, frames=n, input_hwc=[h, w, c], out_channels=o,
+            kernel=k, stride=s, padding=p, route_ms=ms,
+            im2col_ms=kernel_ms(columns, launches=3, runs=3),
+            cudnn_bf16_ms=kernel_ms(cudnn, launches=3, runs=3), plain_s=plain_s,
+            equal_to_plain=True, route_tops=ops / ms / 1e9,
+            int8_peak_share=ops / ms * 1e3 / PEAK_INT8_OPS))
+        del xq, xb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_int8(card):
+    """int8 serving (bench.py's int8 mode): calibration on bench.py's
+    synthetic frames, the distinct int8 conv shapes against their plain
+    version, the int8 depth-head and stereo serve steps beside the bf16
+    forward, and the artifact route (quant.json -> load_inference_fn)."""
+    from object_keypoints_tpu_torch.data.scene import SceneDataset
+    from object_keypoints_tpu_torch.geometry.cameras import load_calibration_params
+    from object_keypoints_tpu_torch.pipeline.decode import CameraArrays, decode_objects_batch
+    from object_keypoints_tpu_torch.pipeline.stereo import (
+        StereoRigArrays,
+        stereo_decode_triangulate,
+    )
+    from object_keypoints_tpu_torch.serving import calibration, quantize
+    from object_keypoints_tpu_torch.serving.export import (
+        export_model,
+        load_inference_fn,
+        make_inference_fn,
+    )
+    from object_keypoints_tpu_torch.testing import (
+        compare_stereo,
+        lift_exact,
+        serve_rig,
+        synthetic_sequence_in_memory,
+    )
+
+    phase_t0 = time.perf_counter()
+    options = {"keypoint_config": list(KEYPOINT_CONFIG)}
+    # 1. calibration: the full-width model in bf16 on bench.py's 8 frames,
+    # read back through the per-frame SceneDataset code (511 resize)
+    with tempfile.TemporaryDirectory() as tmp:
+        recording = synthetic_sequence_in_memory(f"{tmp}/seq", CALIBRATION, KEYPOINT_CONFIG,
+                                                 **INT8_CALIBRATION)
+        dataset = SceneDataset(f"{tmp}/seq", options, recording=recording)
+        frames = calibration.dataset_frames([dataset], INT8_CALIBRATION["n_frames"])
+    model = make_model().to("cuda", memory_format=torch.channels_last).eval()
+    batch = torch.from_numpy(np.stack(frames)).cuda().permute(0, 3, 1, 2)
+    t0 = time.perf_counter()
+    scales = quantize.calibrate_activation_scales(
+        model, model, [batch.to(torch.bfloat16).contiguous()])
+    calibrate_s = time.perf_counter() - t0
+    eligible = set(quantize.conv_paths(model).values())
+    assert set(scales) == eligible and all(v > 0 for v in scales.values()), len(scales)
+
+    # 2. the int8 serve model (bf16 + int8 convs) and its distinct conv shapes
+    cam_pair = serve_rig(load_calibration_params(CALIBRATION))
+    camera = CameraArrays.from_camera(cam_pair.left_camera, device="cuda")
+    decode_kw = dict(keypoint_config=KEYPOINT_CONFIG, model="equidistant", max_peaks=16,
+                     reject_distance=20.0, peak_threshold=0.5)
+    int8_model = make_model()
+    infer = make_inference_fn(int8_model, dtype=torch.bfloat16, device="cuda", quant_scales=scales)
+    n_int8 = sum(isinstance(m, quantize.Int8Conv) for m in int8_model.modules())
+    infer_bf16 = make_inference_fn(make_model(), dtype=torch.bfloat16, device="cuda")
+    frames = torch.randn(2 * PAIRS, 3, 511, 511, generator=torch.Generator().manual_seed(SEED + 2))
+    frames = frames.to("cuda", torch.bfloat16)
+    shapes = int8_shape_rows(int8_model, scales, frames)
+
+    # 3. the int8 depth-head and stereo serve steps
+    rig = StereoRigArrays.from_stereo_camera(cam_pair, device="cuda")
+
+    def depth_step():
+        maps = infer(frames)
+        return maps, decode_objects_batch(*maps, camera, **decode_kw)
+
+    def stereo_step():
+        heat = infer(frames)[0]
+        return heat, stereo_decode_triangulate(heat[:PAIRS], heat[PAIRS:], rig, **STEREO_KW)
+
+    steps, launches = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    for name, step in (("depth", depth_step), ("stereo", stereo_step)):
+        reset_stem_counts()  # this path's run starts here
+        reset_int8_counts()
+        out = step()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(INT8_TIMED):
+            out = step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, int8 = stem_counts(), int8_counts()  # ... and ends here
+        runs = 3 + INT8_TIMED
+        assert counts == {"all": runs, "stem_conv_bf16": runs, "stem_conv_fp32": 0}, counts
+        assert int8["int8_conv2d"] == runs * n_int8 and int8["int8_conv_transpose2d"] == 0, int8
+        launches.append(counts)
+        steps[name] = dict(pairs_per_sec=PAIRS * INT8_TIMED / seconds,
+                           step_ms=1e3 * seconds / INT8_TIMED, stem_launches=counts,
+                           int8_launches=int8)
+        if name == "depth":
+            maps, decoded = out
+        else:
+            heat, stereo = out
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+
+    maps_bf16 = infer_bf16(frames)
+    vs_bf16 = {}
+    for key, got, want in zip(INT8_BUDGETS, maps, maps_bf16):
+        assert torch.isfinite(got).all(), key
+        vs_bf16[key] = (got - want).abs().max().item()
+    check_decode_on_cpu("int8 serve", decoded, [t[:8] for t in maps], cam_pair.left_camera,
+                        decode_kw)
+    assert torch.isfinite(heat).all()
+    rig64 = StereoRigArrays.from_stereo_camera(cam_pair, dtype=torch.float64)
+    cpu = stereo_decode_triangulate(heat[:PAIRS].cpu(), heat[PAIRS:].cpu(),
+                                    StereoRigArrays.from_stereo_camera(cam_pair), **STEREO_KW)
+    card_vs_cpu, _, _ = compare_stereo(stereo, cpu, "int8 stereo serve: card vs CPU",
+                                       atol_2d=1e-3, exact=lift_exact(cpu, rig64))
+    # the forwards alone, bf16 and int8 in turns, in this call
+    forward_ms = {"bfloat16": [], "int8": []}
+    for name in ("bfloat16", "int8", "int8", "bfloat16"):
+        forward_ms[name].append(cuda_ms(lambda: (infer if name == "int8" else infer_bf16)(frames)))
+    ops = {"int8": len(device_events(lambda: infer(frames))),
+           "bfloat16": len(device_events(lambda: infer_bf16(frames)))}
+    by_kernel = {"int8": device_ms_by_name(lambda: infer(frames)),
+                 "bfloat16": device_ms_by_name(lambda: infer_bf16(frames))}
+    del frames, maps_bf16, infer, infer_bf16, int8_model
+
+    # 4. the artifact route: quant.json -> load_inference_fn("auto") in float32
+    x2 = torch.randn(2, 3, 511, 511, generator=torch.Generator().manual_seed(SEED + 5))
+    config = {"heatmaps_out": 3, "input_size": 511, **options}
+    with tempfile.TemporaryDirectory() as tmp:
+        export_model(f"{tmp}/int8", config, make_model(), quant_scales=scales)
+        export_model(f"{tmp}/float", config, make_model())
+        assert sorted(os.listdir(f"{tmp}/int8")) == ["config.json", "params.msgpack", "quant.json"]
+        auto = load_inference_fn(f"{tmp}/int8", device="cuda")
+        reset_stem_counts()  # this path's run starts here
+        reset_int8_counts()
+        served = auto(x2.cuda())
+        artifact_counts, artifact_int8 = stem_counts(), int8_counts()  # ... and ends here
+        assert artifact_counts == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, (
+            artifact_counts)
+        assert artifact_int8["int8_conv2d"] == n_int8, artifact_int8
+        launches.append(artifact_counts)
+        t0 = time.perf_counter()
+        cpu_maps = load_inference_fn(f"{tmp}/int8", device="cpu")(x2)
+        cpu_s = time.perf_counter() - t0
+        never = load_inference_fn(f"{tmp}/int8", quantize="never", device="cuda")(x2.cuda())
+        plain_float = load_inference_fn(f"{tmp}/float", device="cuda")(x2.cuda())
+        try:
+            load_inference_fn(f"{tmp}/float", quantize="require", device="cuda")
+            raise AssertionError('"require" served an artifact without quant.json')
+        except FileNotFoundError:
+            pass
+    card_vs_cpu_int8 = {}
+    for key, got, want in zip(INT8_BUDGETS, served, cpu_maps):
+        assert got.device.type == "cuda" and torch.isfinite(got).all(), key
+        card_vs_cpu_int8[key] = (got.cpu() - want).abs().max().item()
+        assert card_vs_cpu_int8[key] < INT8_BUDGETS[key], (key, card_vs_cpu_int8)
+    never_equal = all(torch.equal(a, b) for a, b in zip(never, plain_float))
+    for a, b in zip(never, plain_float):
+        check_close("never vs float", a, b, atol=1e-5, rtol=0)
+    int8_vs_float32 = {k: (a - b).abs().max().item()
+                       for k, a, b in zip(INT8_BUDGETS, served, never)}
+
+    log("int8", frames=2 * PAIRS, dtype="bfloat16 + int8 convs (bench.py's int8 mode)",
+        calibration=dict(frames=INT8_CALIBRATION["n_frames"], seed=INT8_CALIBRATION["seed"],
+                         source="synthetic sequence in memory -> SceneDataset (511 resize)",
+                         keys=len(scales), keys_equal_name_walk=True, seconds=calibrate_s),
+        int8_convs=n_int8, placement="default: every eligible conv outside /hg_",
+        shapes=shapes, depth=steps["depth"], stereo=steps["stereo"],
+        forward_ms=forward_ms, forward_device_ops=ops, forward_device_ms_by_kernel=by_kernel,
+        peak_mem_gib=peak_mem,
+        int8_vs_bf16_max_abs=vs_bf16, stereo_card_vs_cpu=card_vs_cpu,
+        artifact=dict(dtype="float32", stem_launches=artifact_counts, int8_launches=artifact_int8,
+                      card_vs_cpu_int8_max_abs=card_vs_cpu_int8, budgets=INT8_BUDGETS,
+                      cpu_forward_s=cpu_s, never_bitwise_equal_float=never_equal,
+                      int8_vs_float32_max_abs=int8_vs_float32, require_raises=True),
+        phase_s=time.perf_counter() - phase_t0, card=card)
+    return {k: sum(c[k] for c in launches) for k in launches[0]}
 
 
 def main():
@@ -1130,6 +1478,7 @@ def main():
     train_launches, bare_step_ms = phase_train(card)
     paths.append(train_launches)
     paths.append(phase_loop(card, bare_step_ms))
+    paths.append(phase_int8(card))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

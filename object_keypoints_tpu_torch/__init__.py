@@ -2,18 +2,21 @@
 
 The JAX package ``object_keypoints_tpu`` is the reference; this package
 reproduces its two KeypointNet serve paths (depth head and
-stereo-triangulated), its evaluation path and its training (the step, the
-loop, checkpoints and the CLIs) on an NVIDIA H100 and keeps its module
-names, so each module here has a counterpart of the same name there:
+stereo-triangulated) in float and int8, its evaluation path and its
+training (the step, the loop, checkpoints and the CLIs) on an NVIDIA H100
+and keeps its module names, so each module here has a counterpart of the
+same name there:
 
 models      blocks, fire hourglass, KeypointNet (NCHW)
-ops         stem_conv (CUDA kernel + plain version), decode, associate
+ops         stem_conv (CUDA kernel + plain version), int8_conv (int8 x int8
+            -> int32 convolutions on cuBLASLt's int8 GEMM), decode, associate
 geometry    linalg, fisheye / radtan cameras and host camera classes,
             stereo (Hartley-Sturm correction, DLT)
 pipeline    decode: heatmaps -> associated 3D keypoints (batched);
             stereo: heatmap pairs -> matched, triangulated 3D keypoints;
             components: the reference's host API over both
-serving     export (artifacts both ways, inference fn), weights (JAX <-> port)
+serving     export (artifacts both ways, inference fn), weights (JAX <-> port),
+            quantize (int8 calibration and serving), calibration (frames)
 data        scene (SceneDataset), targets (batched target rendering),
             augment, augment_device (batched, on the card), encode
             (SequenceWriter), synthetic sequences, combinators, prefetch

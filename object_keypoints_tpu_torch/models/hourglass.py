@@ -69,7 +69,7 @@ class HourglassStack(nn.Module):
                 "the hourglass input width dims[0] must equal stem_features[1] and "
                 f"cnv_dim, got {dims[0]}, {stem_features[1]}, {cnv_dim}"
             )
-        self.stacks = stacks
+        self.stacks, self.levels, self.mods = stacks, levels, tuple(mods)
         self.pre = nn.ModuleList([
             StemConvBlock(stem_features[0]),
             Residual(stem_features[0], stem_features[1], stride=2),

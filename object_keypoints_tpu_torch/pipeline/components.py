@@ -32,9 +32,10 @@ def _as_numpy(x):
 
 class InferenceComponent:
     """Runs a model: an exported artifact directory (loaded with the port's
-    ``load_inference_fn``, float serving) or any callable
-    ``frames -> (heatmaps, depth, centers)``. Frames go to the CUDA device
-    when ``cuda`` is true, which raises if there is none, else to the CPU.
+    ``load_inference_fn``: int8 where it holds quant.json, else float) or
+    any callable ``frames -> (heatmaps, depth, centers)``. Frames go to the
+    CUDA device when ``cuda`` is true, which raises if there is none, else
+    to the CPU.
     ``infer`` returns the maps as tensors on that device; calling the
     component returns them as numpy arrays, as the reference does."""
 

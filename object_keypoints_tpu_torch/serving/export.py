@@ -9,11 +9,12 @@ directory the JAX package's ``export_model`` writes:
 
 ``load_model`` reads it with ``msgpack`` alone (no flax) and loads the
 weights through ``serving.weights``; ``export_model`` writes one from a port
-model, in the same format, for either package to read. ``make_inference_fn``
-keeps the reference contract: frames (N, 3, H, W) in; sigmoid heatmaps (N,
-K, h, w), depth (N, K, h, w) and center offsets (N, T, 2, h, w) out, all
-float32. int8 serving is not ported yet: an artifact with quant.json is
-refused rather than served in float.
+model, in the same format, for either package to read, quant.json included.
+``make_inference_fn`` keeps the reference contract: frames (N, 3, H, W) in;
+sigmoid heatmaps (N, K, h, w), depth (N, K, h, w) and center offsets (N, T,
+2, h, w) out, all float32. With activation scales it serves int8
+(``serving.quantize``): ``load_inference_fn`` does so for an artifact that
+holds quant.json, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet, outputs_to_reference
 from object_keypoints_tpu_torch.precision import no_tf32
+from object_keypoints_tpu_torch.serving.quantize import quantize_model
 from object_keypoints_tpu_torch.serving.weights import (
     keypoint_net_state_dict,
     keypoint_net_variables,
@@ -87,15 +89,19 @@ def architecture(config: dict) -> dict:
                 mods=tuple(config.get("mods", (2, 2, 2, 2, 4))))
 
 
-def export_model(path: str, config: dict, model) -> None:
+def export_model(path: str, config: dict, model, quant_scales: Optional[dict] = None) -> None:
     """Write the serving artifact of ``model`` (a port KeypointNet or its
     state_dict) with ``config``: config.json and params.msgpack as the JAX
-    package's ``export_model`` writes them, float32. The weights go through
-    a temporary file and ``os.replace``, so a killed process leaves no
-    truncated artifact."""
+    package's ``export_model`` writes them, float32, and with
+    ``quant_scales`` (``serving.quantize.calibrate_activation_scales``)
+    quant.json. The weights go through a temporary file and ``os.replace``,
+    so a killed process leaves no truncated artifact."""
     state = model.state_dict() if isinstance(model, torch.nn.Module) else model
     variables = keypoint_net_variables(state, **architecture(config))
     os.makedirs(path, exist_ok=True)
+    if quant_scales:
+        with open(os.path.join(path, QUANT_NAME), "wt") as f:
+            json.dump(quant_scales, f, indent=2, sort_keys=True)
     with open(os.path.join(path, CONFIG_NAME), "wt") as f:
         json.dump(config, f, indent=2)
     tmp = os.path.join(path, PARAMS_NAME + ".tmp")
@@ -117,9 +123,22 @@ def load_model(path: str):
     return model, config
 
 
-def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda"):
+def load_quant_scales(path: str) -> Optional[dict]:
+    """The activation scales saved with the artifact (quant.json), or None."""
+    qpath = os.path.join(path, QUANT_NAME)
+    if not os.path.exists(qpath):
+        return None
+    with open(qpath, "rt") as f:
+        return json.load(f)
+
+
+def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda",
+                      quant_scales: Optional[dict] = None):
     """Eval-mode reference-contract inference: NCHW frames in, (sigmoid
     heatmaps, depth, centers) of the last stack out, float32 and contiguous.
+    With ``quant_scales`` the eligible convs run int8
+    (``serving.quantize.quantize_model``, its default placement), the rest
+    in ``dtype``.
 
     Moves ``model`` (in place) to ``device``, channels_last, eval mode; its
     parameters and BatchNorm statistics stay float32. ``dtype`` is the
@@ -134,6 +153,8 @@ def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda"):
         raise RuntimeError(f"make_inference_fn: device {str(device)!r} asked for, but CUDA "
                            "is not available; pass device='cpu' to serve on the CPU")
     model.to(device=device, memory_format=torch.channels_last).eval()
+    if quant_scales:
+        quantize_model(model, quant_scales)
 
     @torch.inference_mode()
     def infer(frames):
@@ -148,14 +169,12 @@ def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda"):
 def load_inference_fn(path: str, dtype=torch.float32, quantize: str = "auto", device="cuda"):
     """``make_inference_fn`` over an artifact, on the card unless
     ``device="cpu"``. ``quantize`` as in the JAX package: "auto" serves int8
-    if and only if the artifact holds quant.json, "require" int8, "never"
-    float. Until int8 serving is ported, every case that would serve int8
-    raises ``NotImplementedError``."""
+    if and only if the artifact holds quant.json, "require" int8 (raising
+    ``FileNotFoundError`` where there is no quant.json), "never" float."""
     if quantize not in ("auto", "never", "require"):
         raise ValueError(f"quantize={quantize!r}: expected 'auto', 'never' or 'require'")
-    if quantize == "require" or (quantize == "auto"
-                                 and os.path.exists(os.path.join(path, QUANT_NAME))):
-        raise NotImplementedError(f"quantize={quantize!r} on {path}: int8 serving is not "
-                                  "ported yet")
+    scales = None if quantize == "never" else load_quant_scales(path)
+    if quantize == "require" and not scales:
+        raise FileNotFoundError(f"no {QUANT_NAME} in artifact {path}")
     model, _ = load_model(path)
-    return make_inference_fn(model, dtype=dtype, device=device)
+    return make_inference_fn(model, dtype=dtype, device=device, quant_scales=scales)

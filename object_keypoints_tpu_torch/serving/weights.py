@@ -162,6 +162,16 @@ class _Exporter(_NameMap):
         return out
 
 
+def conv_module_paths(stacks: int = 2, levels: int = 4,
+                      mods: Sequence[int] = (2, 2, 2, 2, 4)) -> Dict[str, tuple]:
+    """Port module name -> (flax module path, "conv" or "conv_t") of every
+    convolution of the KeypointNet, in the walk's order: the walk's kernel
+    entries without their trailing ``weight`` / ``kernel``."""
+    entries = _NameMap().keypoint_net(stacks, levels, mods).entries
+    return {key[:-len(".weight")]: ("/".join(path[:-1]), kind)
+            for key, _, path, kind in entries if kind in ("conv", "conv_t")}
+
+
 def keypoint_net_state_dict(variables: Mapping, stacks: int = 2, levels: int = 4,
                             mods: Sequence[int] = (2, 2, 2, 2, 4)) -> Dict[str, torch.Tensor]:
     """JAX KeypointNet variables -> a state_dict for the port's KeypointNet."""

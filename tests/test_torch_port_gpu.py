@@ -689,3 +689,94 @@ def test_warm_loop_steps_never_wait_for_the_card(cuda, tmp_path, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(calls) == result["steps"] == 8
+
+
+# --- int8 serving: ops.int8_conv's GEMM route (torch._int_mm) and serving.quantize ----
+
+INT8_SHAPES = [  # (n, h, w, c_in, c_out, kernel, stride, padding)
+    (4, 32, 32, 128, 256, 3, 2, 1),  # pre_res1's conv1
+    (4, 16, 16, 256, 256, 3, 1, 1),  # pre_res1's conv2, the 3x3 blocks
+    (4, 32, 32, 128, 256, 1, 2, 0),  # pre_res1's skip
+    (4, 16, 16, 256, 128, 1, 1, 0),  # a head's conv0
+    (4, 16, 16, 32, 3, 1, 1, 0),  # a head's conv_out: N < 8
+    (1, 4, 4, 32, 4, 1, 1, 0),  # M = 16 rows, N < 8
+    (2, 5, 3, 20, 10, 3, 2, 1),  # K and N off multiples of 8, M <= 16
+]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_gemm_route_on_card_equals_plain(cuda, shape):
+    """The GEMM route on the card gives the plain version's int32 sums
+    exactly, and the wrapper counts its launch."""
+    from object_keypoints_tpu_torch.ops import int8_conv
+
+    n, h, w, c, o, k, s, p = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    xq = torch.randint(-127, 128, (n, h, w, c), generator=g, dtype=torch.int8, device=cuda)
+    wq = torch.randint(-127, 128, (o, c, k, k), generator=g, dtype=torch.int8, device=cuda)
+    before = int8_conv.int8_conv2d.launches
+    got = int8_conv.int8_conv2d(xq, int8_conv.pack_conv2d_weight(wq), o, k, s, p)
+    torch.cuda.synchronize()
+    assert int8_conv.int8_conv2d.launches == before + 1 and got.device.type == "cuda"
+    assert torch.equal(got, int8_conv.int8_conv2d_plain(xq, wq, s, p))
+    wt = torch.randint(-127, 128, (c, o, 4, 4), generator=g, dtype=torch.int8, device=cuda)
+    before = int8_conv.int8_conv_transpose2d.launches
+    got = int8_conv.int8_conv_transpose2d(xq, int8_conv.pack_conv_transpose2d_weight(wt), o)
+    torch.cuda.synchronize()
+    assert int8_conv.int8_conv_transpose2d.launches == before + 1
+    assert torch.equal(got, int8_conv.int8_conv_transpose2d_plain(xq, wt))
+
+
+INT8_TINY = dict(heatmaps_out=3, features=32, dims=(32, 32, 48), mods=(1, 1, 1), levels=2,
+                 stem_features=(16, 32), cnv_dim=32, stacks=2, dropout=0.0)
+
+
+def _int8_artifact(path, skip_env=None):
+    """A small model's artifact with quant.json, calibrated on the CPU."""
+    from object_keypoints_tpu_torch.serving.export import export_model
+    from object_keypoints_tpu_torch.serving.quantize import calibrate_activation_scales
+
+    model = KeypointNet(**INT8_TINY, generator=torch.Generator().manual_seed(7)).eval()
+    frames = torch.randn(2, 3, 127, 127, generator=torch.Generator().manual_seed(8))
+    scales = calibrate_activation_scales(model, model, [frames])
+    config = {**{k: list(v) if isinstance(v, tuple) else v for k, v in INT8_TINY.items()},
+              "keypoint_config": [1, 3]}
+    export_model(str(path), config, model, quant_scales=scales)
+    return frames
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_artifact_on_card_matches_cpu(cuda, tmp_path, monkeypatch, dtype):
+    """load_inference_fn("auto") serves an artifact with quant.json int8 on
+    the card, every eligible conv on the GEMM route (OKT_INT8_SKIP=""),
+    within tests/test_quantize.py's budgets of the CPU's int8 forward
+    (sigmoid heatmaps 0.02, depth 5 mm, centers 0.25 px)."""
+    from object_keypoints_tpu_torch.ops import int8_conv
+    from object_keypoints_tpu_torch.serving.export import load_inference_fn
+
+    monkeypatch.setenv("OKT_INT8_SKIP", "")
+    frames = _int8_artifact(tmp_path)
+    dt = getattr(torch, dtype)
+    before = int8_conv.int8_conv2d.launches, int8_conv.int8_conv_transpose2d.launches
+    card = load_inference_fn(str(tmp_path), dtype=dt, device=cuda)(frames.to(cuda))
+    assert int8_conv.int8_conv2d.launches > before[0]
+    assert int8_conv.int8_conv_transpose2d.launches > before[1]
+    cpu = load_inference_fn(str(tmp_path), dtype=dt, device="cpu")(frames)
+    for got, want, limit in zip(card, cpu, (0.02, 0.005, 0.25)):
+        assert got.device.type == "cuda" and torch.isfinite(got).all()
+        assert (got.cpu() - want).abs().max().item() < limit
+
+
+def test_warm_int8_forward_never_waits_for_the_card(cuda, tmp_path, monkeypatch):
+    from object_keypoints_tpu_torch.serving.export import load_inference_fn
+
+    monkeypatch.setenv("OKT_INT8_SKIP", "")
+    frames = _int8_artifact(tmp_path).to(cuda).to(torch.bfloat16)
+    infer = load_inference_fn(str(tmp_path), dtype=torch.bfloat16, device=cuda)
+    infer(frames)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        infer(frames)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

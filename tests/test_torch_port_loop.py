@@ -464,14 +464,23 @@ def test_train_and_package_clis_on_the_cpu(tree, tmp_path, tiny_cli, capsys):
         out / "export" / "params.msgpack").read_bytes()
 
 
-@pytest.mark.parametrize("flags", [["--quantize"], ["--per-channel"],
+@pytest.mark.parametrize("flags", [["--calibration-data", "data"], ["--per-channel"],
                                    ["--calibration-frames", "8"],
-                                   ["--calibration-percentile", "99.9"],
-                                   ["--calibration-data", "data"]])
+                                   ["--calibration-percentile", "99.9"], []])
 def test_package_cli_refuses_int8(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="int8 calibration is not ported"):
+    """The name dates from before int8 calibration was ported: without
+    ``--quantize`` the CLI writes no quant.json whatever calibration flags
+    it is given, as scripts/package_model.py; on a directory without a
+    checkpoint it raises and writes nothing."""
+    with pytest.raises(FileNotFoundError):
         package_model.main(["--model", str(tmp_path), "--out", str(tmp_path / "a"), *flags])
     assert not (tmp_path / "a").exists()
+    run = tmp_path / "run"
+    ckpt = checkpoints.CheckpointManager(str(run), hparams=tiny_hparams())
+    ckpt.save_if_best(tiny_state(), 1, 0.5)
+    result = package_model.main(["--model", str(run), "--out", str(tmp_path / "a"), *flags])
+    assert result["quantized_convs"] == 0
+    assert sorted(os.listdir(tmp_path / "a")) == ["config.json", "params.msgpack"]
 
 
 def test_train_cli_refuses_several_processes(tree, tmp_path, monkeypatch):

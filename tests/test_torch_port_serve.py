@@ -95,21 +95,25 @@ def test_load_model_reads_flax_msgpack_without_flax(artifact):
 
 
 def test_int8_serving_is_not_ported(artifact, tmp_path):
-    """An artifact holding quant.json is served int8 by the JAX package
-    under the default "auto": the port refuses it rather than serve float."""
+    """The name dates from before int8 serving was ported; the test now
+    holds ``load_inference_fn``'s JAX semantics for an artifact with
+    quant.json: "auto" (the default) and "require" serve it int8, "never"
+    serves float, "require" without quant.json raises FileNotFoundError, and
+    another word raises ValueError."""
     quantized = tmp_path / "quantized"
     shutil.copytree(artifact, quantized)
-    (quantized / export.QUANT_NAME).write_text(json.dumps({"backbone/pre_conv": 1.0}))
+    (quantized / export.QUANT_NAME).write_text(json.dumps({"heatmap_head_1/conv_out": 1.0}))
+    frames = np.random.default_rng(24).normal(size=(2, 3, 128, 128)).astype(np.float32)
+    never = export.load_inference_fn(str(quantized), quantize="never", device="cpu")(frames)
+    float_maps = export.load_inference_fn(artifact, device="cpu")(frames)
+    assert all(torch.equal(a, b) for a, b in zip(never, float_maps))
     for quantize in ("auto", "require"):
-        with pytest.raises(NotImplementedError, match="int8 serving is not ported"):
-            export.load_inference_fn(str(quantized), quantize=quantize, device="cpu")
-    with pytest.raises(NotImplementedError):
-        export.load_inference_fn(str(quantized), device="cpu")  # "auto" is the default
-    with pytest.raises(NotImplementedError):
+        maps = export.load_inference_fn(str(quantized), quantize=quantize, device="cpu")(frames)
+        assert any(not torch.equal(a, b) for a, b in zip(maps, never)), quantize
+    with pytest.raises(FileNotFoundError):
         export.load_inference_fn(artifact, quantize="require", device="cpu")
     with pytest.raises(ValueError):
         export.load_inference_fn(artifact, quantize="int8", device="cpu")
-    export.load_inference_fn(str(quantized), quantize="never", device="cpu")
 
 
 def test_auto_serves_a_float_artifact_in_float(artifact):
@@ -140,10 +144,11 @@ def test_port_never_imports_jax(tmp_path):
         "import object_keypoints_tpu_torch\n"
         "from object_keypoints_tpu_torch.models import blocks, hourglass, keypoint_net\n"
         "from object_keypoints_tpu_torch.ops import _build, associate, decode, stem_conv\n"
+        "from object_keypoints_tpu_torch.ops import int8_conv\n"
         "from object_keypoints_tpu_torch.geometry import cameras, linalg, stereo\n"
         "from object_keypoints_tpu_torch.pipeline import components, decode\n"
         "from object_keypoints_tpu_torch.pipeline import stereo as pipeline_stereo\n"
-        "from object_keypoints_tpu_torch.serving import export, weights\n"
+        "from object_keypoints_tpu_torch.serving import calibration, export, quantize, weights\n"
         "from object_keypoints_tpu_torch import constants, evaluation, testing\n"
         "from object_keypoints_tpu_torch.data import augment, encode, scene, synthetic, targets\n"
         "from object_keypoints_tpu_torch.data import augment_device, combinators, prefetch\n"
