@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train and int8 paths.
+"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train, int8 and detector paths.
 
     python3 chip_smoke.py
 
@@ -113,7 +113,29 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    with quant.json -> load_inference_fn "auto" in float32, one fp32 stem
    launch, within tests/test_quantize.py's budgets of the CPU's int8
    forward; "never" equal to the float path; "require" without quant.json
-   raises FileNotFoundError).
+   raises FileNotFoundError);
+12. the CornerNet detectors' serve path (``inference.detector.Detector``,
+   as the detect CLI runs it) at full width in bf16 with seeded weights on a
+   synthetic 480x640 uint8 image (numpy seed 0): (a) CornerNet-Squeeze
+   under configs/CornerNet_Squeeze.json, frames (1, 3, 511, 767); (b)
+   CornerNet under configs/CornerNet.json, flip test, frames (2, 3, 511,
+   767), K 100, 1,000 detections, exp soft-NMS; (c) one call of CornerNet
+   under configs/CornerNet-multi_scale.json (five scales, flip, merge:
+   soft_nms_merge_batch). Checks: every stem launch on the bf16 kernel, one
+   a scale; the bf16 stem against its plain version on the detector's own
+   frames and stem weights at each new shape; the card's corner decode
+   against the CPU decode of the same heads (classes equal, boxes 1e-4 px,
+   scores 1e-5, in a device-independent row order) and the card's soft-NMS
+   against the CPU's on the same detections and on as many synthetic rows,
+   all valid (counts per class equal, boxes 1e-3 px, scores 1e-5); outputs
+   finite, frames and detections on the card; the float32 forward (TF32
+   off) with the stem kernel against the plain stem (the last stack's heads
+   within 1e-4 x max(1, max|ref|)). Prints, for (a) and (b), images/s over
+   warm calls, the ms per image by part (host prefix, upload, forward and
+   decode by CUDA events, copy back, soft-NMS with its steps and device
+   ops, host tail), device ops and busy share of one traced call, the
+   forward's device time by kernel (the corner pools' cummax among them)
+   and peak memory.
 
 The process's TF32 flags stay at torch's defaults: the port's entry points
 (``infer``, the train and eval steps) pin TF32 off themselves; phases 3 and
@@ -122,10 +144,10 @@ The process's TF32 flags stay at torch's defaults: the port's entry points
 Any failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON and ``{"ok": true, "device": {...}}``. The stem
 wrapper counts launches in all and per kernel; phases 4, 5, 6, 8, 9 (its
-eval_steps), 10 (the loop's runs and the packaged models' serves) and 11
-(the int8 serve steps and the int8 artifact's serve) each set the counts to
-0 before they run and read them after, and the kernels' line gives each
-kernel's launches from those runs. The int8 convolutions run on cuBLASLt's
+eval_steps), 10 (the loop's runs and the packaged models' serves), 11
+(the int8 serve steps and the int8 artifact's serve) and 12 (the detectors'
+calls) each set the counts to 0 before they run and read them after, and
+the kernels' line gives each kernel's launches from those runs. The int8 convolutions run on cuBLASLt's
 int8 GEMM, not on a kernel of this repository, so they are not in that line;
 phase 11 counts their launches apart.
 """
@@ -1468,6 +1490,307 @@ def phase_int8(card):
     return {k: sum(c[k] for c in launches) for k in launches[0]}
 
 
+DETECT_IMAGE = (480, 640)  # COCO's typical size: non-square frames
+DETECT_TIMED = {"CornerNet_Squeeze": 5, "CornerNet": 3}  # warm calls timed
+HEAT_GAIN = -30.0
+
+
+def plant_heads(model):
+    """Seeded random heads pair no corners (their top corners fall in other
+    classes or inverted boxes), which would leave the decode's pairing and
+    the soft-NMS without work. So each heat head's output kernel becomes its
+    class 0 kernel, shared by every class and scaled by HEAT_GAIN, with
+    biases -2.19 + 0.01 c: tests/test_torch_port_detector.py's recipe. On
+    the 480x640 image it gives CornerNet-Squeeze ~100 and CornerNet ~1,100
+    valid pairings of one or two classes."""
+    with torch.no_grad():
+        for heads in (model.tl_heats, model.br_heats):
+            for head in heads:
+                conv = head[1]
+                conv.weight.copy_(conv.weight[:1].expand_as(conv.weight) * HEAT_GAIN)
+                conv.bias.copy_(-2.19 + 0.01 * torch.arange(conv.bias.numel(), dtype=torch.float32))
+
+
+def detector_for(arch, config_name=None):
+    """A full-width detector from seeded weights (heads planted), bf16 on
+    the card, as the detect CLI builds it."""
+    from object_keypoints_tpu_torch.inference.detector import Detector
+    from object_keypoints_tpu_torch.models.cornernet import FACTORIES
+    from object_keypoints_tpu_torch.utils.config import CONFIG_DIR, DetectionConfig, load_cfg
+
+    config = DetectionConfig(load_cfg(CONFIG_DIR / f"{config_name or arch}.json")[1])
+    model = FACTORIES[arch](config["categories"], generator=torch.Generator().manual_seed(SEED))
+    plant_heads(model)
+    return Detector(model, config, device="cuda", dtype=torch.bfloat16)
+
+
+def decode_kwargs(config):
+    return dict(K=config["top_k"], ae_threshold=config["ae_threshold"],
+                kernel=config["nms_kernel"], num_dets=config["num_dets"])
+
+
+def canonical(dets):
+    """Each image's detection rows in a device-independent order: by class
+    and box, which the card and the CPU compute bit for bit (pixel indices
+    plus gathered offsets); only the scores pass through the sigmoid."""
+    out = []
+    for d in dets:
+        order = np.lexsort((d[:, 3], d[:, 2], d[:, 1], d[:, 0], d[:, 7]))
+        out.append(d[order])
+    return np.stack(out)
+
+
+def check_detections(what, got, want, atol_box, atol_score):
+    """(B, n, 8) detections: rejected counts and classes equal, boxes and
+    scores within the tolerances, in the canonical order."""
+    got, want = canonical(got), canonical(want)
+    assert (got[..., 4] > -1).sum() == (want[..., 4] > -1).sum(), what
+    assert np.array_equal(got[..., 7], want[..., 7]), what
+    box = float(np.abs(got[..., :4] - want[..., :4]).max())
+    score = float(np.abs(got[..., 4:7] - want[..., 4:7]).max())
+    assert box <= atol_box and score <= atol_score, (what, box, score)
+    return {"box_px": box, "score": score, "valid": int((want[..., 4] > -1).sum())}
+
+
+def check_nms(what, card, cpu):
+    """Per-class soft-NMS results: equal counts per class; boxes within
+    1e-3 px and scores within 1e-5, in the canonical (box) order."""
+    worst = {"box_px": 0.0, "score": 0.0}
+    for j in cpu:
+        a, b = card[j], cpu[j]
+        assert a.shape == b.shape, (what, j, a.shape, b.shape)
+        if not len(b):
+            continue
+        a, b = (x[np.lexsort((x[:, 3], x[:, 2], x[:, 1], x[:, 0]))] for x in (a, b))
+        worst["box_px"] = max(worst["box_px"], float(np.abs(a[:, :4] - b[:, :4]).max()))
+        worst["score"] = max(worst["score"], float(np.abs(a[:, 4] - b[:, 4]).max()))
+    assert worst["box_px"] <= 1e-3 and worst["score"] <= 1e-5, (what, worst)
+    return worst
+
+
+def detector_stem_rows(det, batches):
+    """The bf16 stem kernel against its plain version on the detector's own
+    frames and stem weights, at each new shape: one output ulp, stated as
+    rtol = atol = 1e-2; its ms, the plain version's and cuDNN's bf16 conv."""
+    from object_keypoints_tpu_torch.ops.stem_conv import fold_bn, stem_conv, stem_conv_plain
+    from object_keypoints_tpu_torch.precision import no_tf32
+
+    stem = det.model.hg.pre[0]
+    bn = stem.bn
+    rows = []
+    with torch.inference_mode(), no_tf32():
+        w = stem.conv.weight
+        scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+        for batch in batches:
+            x = det.frames(batch)
+            out = stem_conv(x, w, scale, bias)
+            err = check_close(f"detector stem {tuple(x.shape)}", out,
+                              stem_conv_plain(x, w, scale, bias), 1e-2, 1e-2)
+            wc = w.to(torch.bfloat16)
+            ms = kernel_ms(lambda: stem_conv(x, w, scale, bias))
+            bound_ms, bound_by, _, _ = stem_bound(x, w.shape[0])
+            rows.append({"shape": list(x.shape), "max_abs_err": err, "ms": ms,
+                         "plain_ms": kernel_ms(lambda: stem_conv_plain(x, w, scale, bias),
+                                               launches=3),
+                         "library_ms": kernel_ms(lambda: torch.nn.functional.conv2d(
+                             x, wc, stride=2, padding=3)),
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "bound_share": bound_ms / ms})
+    return rows
+
+
+def detector_run(det, image, timed):
+    """The detector's main path: one cold call, then ``timed`` warm calls on
+    the host clock (each returns host arrays, so it ends synchronised).
+    Returns the last result, images/s, the stem launches and peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_stem_counts()  # the main path's run starts here
+    boxes = det(image)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        boxes = det(image)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = stem_counts()  # ... and ends here
+    return boxes, timed / seconds, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def detector_split(det, image, trace_nms=True):
+    """ms per image by part, each on its own: the host prefix, the upload,
+    the forward and the decode (CUDA events), the copy back, the soft-NMS
+    (host clock: upload, loop, copy back; its steps and device ops) and the
+    host tail; plus the cards' checks of the decode and the soft-NMS against
+    the CPU on the same inputs."""
+    from object_keypoints_tpu_torch.inference import detector
+    from object_keypoints_tpu_torch.ops.detection_decode import decode_detections
+    from object_keypoints_tpu_torch.precision import no_tf32
+
+    config, model = det.config, det.model
+    kw = decode_kwargs(config)
+    split = collections.defaultdict(float)
+    all_dets, heads_checked = [], None
+    for scale in config["test_scales"]:
+        (batch, geometry), ms = host_ms(lambda: detector.scale_batch(config, image, scale))
+        split["host_prefix_ms"] += ms
+        frames, ms = host_ms(lambda: det.frames(batch))
+        split["upload_ms"] += ms
+        with torch.inference_mode(), no_tf32():
+            def forward():
+                return model.heads(model.hg(frames)[-1], model.stacks - 1)
+
+            heads = forward()
+            split["forward_ms"] += cuda_ms(forward, iters=5, warmup=1)
+            dets = decode_detections(*heads, **kw)
+            split["decode_ms"] += cuda_ms(lambda: decode_detections(*heads, **kw), iters=5,
+                                          warmup=1)
+        host, ms = host_ms(lambda: dets.cpu().numpy())
+        split["copy_back_ms"] += ms
+        if heads_checked is None:  # the first scale's decode, card vs CPU, same heads
+            cpu = decode_detections(*(h.cpu() for h in heads), **kw).numpy()
+            heads_checked = check_detections("detector decode: card vs CPU", host, cpu,
+                                             atol_box=1e-4, atol_score=1e-5)
+        (dets_img, ms) = host_ms(lambda: detector.rescale_scale(config, host.copy(), geometry))
+        split["host_tail_ms"] += ms
+        all_dets.append(dets_img)
+    detections = np.concatenate(all_dets, axis=1)[0]
+    (boxes, steps), nms_ms = host_ms(lambda: detector.class_soft_nms(config, detections, "cuda"))
+    nms = {"nms_ms": nms_ms, "nms_steps": steps, "nms_rows": len(detections)}
+    if trace_nms:  # (the multi-scale loop's ~10^5 operations are not traced)
+        ops = device_events(lambda: detector.class_soft_nms(config, detections, "cuda"))
+        nms.update(nms_device_ops=len(ops), nms_device_busy_ms=busy_us(ops) / 1e3,
+                   nms_launches_per_step=len(ops) / max(steps, 1))
+    _, ms = host_ms(lambda: detector.cap_detections(config, dict(boxes)))
+    split["host_tail_ms"] += ms
+    return dict(split), nms, heads_checked, detections
+
+
+def synthetic_nms(config, rows):
+    """``class_soft_nms`` on ``rows`` synthetic detections, all valid, over
+    the config's classes (sizes drawn from a Dirichlet, boxes of 4-120 px in
+    a 640x480 image, scores in (0, 1)): the card against the CPU, and the
+    card's ms, steps and device ops."""
+    from object_keypoints_tpu_torch.inference import detector
+
+    rng = np.random.default_rng(SEED + 12)
+    classes = rng.choice(config["categories"], rows, p=rng.dirichlet(np.ones(config["categories"])))
+    xy = rng.uniform(0, [640, 480], (rows, 2))
+    dets = np.concatenate([xy, xy + rng.uniform(4, 120, (rows, 2)), rng.uniform(0, 1, (rows, 3)),
+                           classes[:, None]], axis=1).astype(np.float32)
+    (card, steps), ms = host_ms(lambda: detector.class_soft_nms(config, dets, "cuda"))
+    ops = device_events(lambda: detector.class_soft_nms(config, dets, "cuda"))
+    cpu, _ = detector.class_soft_nms(config, dets, "cpu")
+    check = check_nms("synthetic soft-NMS: card vs CPU", card, cpu)
+    return {"rows": rows, "ms": ms, "steps": steps, "device_ops": len(ops),
+            "device_busy_ms": busy_us(ops) / 1e3, "card_vs_cpu": check,
+            "kept": int(sum(len(v) for v in card.values()))}
+
+
+def phase_detector(card):
+    """The CornerNet detectors' serve path through ``Detector`` at full
+    width, bf16, seeded weights, on a 480x640 synthetic image: (a)
+    CornerNet-Squeeze, one scale, no flip; (b) CornerNet, flip; (c) one call
+    of CornerNet under the multi-scale config (five scales, flip, merge)."""
+    from object_keypoints_tpu_torch.inference import detector
+    from object_keypoints_tpu_torch.ops.stem_conv import stem_conv_plain
+    from object_keypoints_tpu_torch.precision import no_tf32
+
+    phase_t0 = time.perf_counter()
+    image = np.random.default_rng(SEED).integers(0, 256, (*DETECT_IMAGE, 3), dtype=np.uint8)
+    launches, results = [], {}
+    for arch in ("CornerNet_Squeeze", "CornerNet"):
+        det = detector_for(arch)
+        config = det.config
+        n_params = sum(p.numel() for p in det.model.parameters())
+        flip = 2 if config["test_flipped"] else 1
+        batches = [detector.scale_batch(config, image, s)[0] for s in config["test_scales"]]
+        assert [b.shape for b in batches] == [(flip, 511, 767, 3)], [b.shape for b in batches]
+
+        boxes, images_per_sec, counts, peak_mem = detector_run(det, image, DETECT_TIMED[arch])
+        calls = 1 + DETECT_TIMED[arch]
+        # every stem launch of the path went to the bf16 kernel, one a scale
+        assert counts == {"all": calls, "stem_conv_bf16": calls, "stem_conv_fp32": 0}, counts
+        launches.append(counts)
+        assert sorted(boxes, key=int) == [str(i) for i in range(1, 81)]
+        for v in boxes.values():
+            assert v.shape[1] == 5 and np.isfinite(v).all()
+        n_boxes = sum(len(v) for v in boxes.values())
+        assert 0 < n_boxes <= config["max_per_image"] + 5, n_boxes  # ties at the cap stay
+
+        split, nms, decode_check, detections = detector_split(det, image)
+        assert decode_check["valid"] > 0 and nms["nms_steps"] > 0, (decode_check, nms)
+        # the card's soft-NMS against the CPU's on the same detections, and
+        # on a stack of the same size where every row is real
+        card_nms, _ = detector.class_soft_nms(config, detections, "cuda")
+        cpu_nms, _ = detector.class_soft_nms(config, detections, "cpu")
+        nms_check = check_nms(f"{arch} soft-NMS: card vs CPU", card_nms, cpu_nms)
+        nms_full = synthetic_nms(config, len(detections))
+
+        # the frames and the outputs are on the card and finite
+        x = det.frames(batches[0])
+        assert x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.is_contiguous()
+        with torch.inference_mode():
+            out = det.forward(x, **decode_kwargs(config))
+        assert out.device.type == "cuda" and torch.isfinite(out).all()
+
+        # the forward in float32 (TF32 off): the stem kernel against the plain stem
+        with torch.inference_mode(), no_tf32():
+            x32 = x.float()
+            reset_stem_counts()
+            got = det.model(x32, test=True, **decode_kwargs(config))
+            fp32_counts = stem_counts()
+            want = det.model(x32, test=True, stem=stem_conv_plain, **decode_kwargs(config))
+        assert fp32_counts == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, fp32_counts
+        fp32_err = 0.0
+        for name, g, w in zip(("tl_heat", "br_heat", "tl_tag", "br_tag"), got[1:], want[1:]):
+            ref = max(1.0, w.abs().max().item())
+            fp32_err = max(fp32_err, check_close(f"{arch} fp32 {name}", g, w,
+                                                 atol=1e-4 * ref, rtol=1e-4) / ref)
+
+        by_kernel = device_ms_by_name(lambda: det.forward(x, **decode_kwargs(config)), top=40)
+        pools = [r for r in by_kernel["top"] if "cummax" in r["name"].lower()
+                 or "scan" in r["name"].lower()]
+        busy, ops, wall = traced_busy_share(lambda: det(image))
+        results[arch] = dict(
+            params=n_params, frames=[flip, 3, 511, 767], dtype="bfloat16",
+            images_per_sec=images_per_sec, ms_per_image=1e3 / images_per_sec, **split, **nms,
+            device_ops_per_image=ops, device_busy_share=busy, traced_wall_ms=wall,
+            forward_device_ms=by_kernel["total_ms"], pool_kernels=pools,
+            top_kernels=by_kernel["top"][:10], peak_mem_gib=peak_mem, boxes=n_boxes,
+            decode_card_vs_cpu=decode_check, nms_card_vs_cpu=nms_check,
+            nms_all_rows_valid=nms_full,
+            fp32_forward_max_rel_err=fp32_err, stem_launches=counts,
+            stem_rows=detector_stem_rows(det, batches))
+        log("detector", arch=arch, **results[arch], card=card)
+        del det, x, x32, out, got, want
+        torch.cuda.empty_cache()
+
+    # (c) CornerNet under the multi-scale config: five scales, flip, merge
+    det = detector_for("CornerNet", "CornerNet-multi_scale")
+    config = det.config
+    batches = [detector.scale_batch(config, image, s)[0] for s in config["test_scales"]]
+    shapes = [list(b.shape) for b in batches]
+    assert shapes == [[2, 255, 383, 3], [2, 383, 511, 3], [2, 511, 767, 3], [2, 639, 895, 3],
+                      [2, 767, 1023, 3]], shapes
+    assert config["merge_bbox"]
+    boxes, images_per_sec, counts, peak_mem = detector_run(det, image, 1)
+    assert counts == {"all": 10, "stem_conv_bf16": 10, "stem_conv_fp32": 0}, counts
+    launches.append(counts)
+    for v in boxes.values():
+        assert v.shape[1] == 5 and np.isfinite(v).all()
+    split, nms, decode_check, detections = detector_split(det, image, trace_nms=False)
+    log("detector", arch="CornerNet", config="CornerNet-multi_scale", scales=config["test_scales"],
+        frames=[[b.shape[0], 3, *b.shape[1:3]] for b in batches], images_per_sec=images_per_sec,
+        ms_per_image=1e3 / images_per_sec, **split, **nms, peak_mem_gib=peak_mem,
+        boxes=sum(len(v) for v in boxes.values()), decode_card_vs_cpu=decode_check,
+        stem_launches=counts, stem_rows=detector_stem_rows(det, batches), card=card,
+        tolerance="stem: rtol = atol = 1e-2 (one bf16 ulp); decode: canonical order, "
+                  "classes equal, boxes 1e-4 px, scores 1e-5; soft-NMS: counts per class "
+                  "equal, boxes 1e-3 px, scores 1e-5; fp32 heads: atol 1e-4 x max(1, max|ref|)")
+    log("detector_phase", phase_s=time.perf_counter() - phase_t0)
+    return {k: sum(c[k] for c in launches) for k in launches[0]}
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1479,6 +1802,7 @@ def main():
     paths.append(train_launches)
     paths.append(phase_loop(card, bare_step_ms))
     paths.append(phase_int8(card))
+    paths.append(phase_detector(card))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

@@ -1,1 +1,1 @@
-"""Network modules: blocks, fire hourglass, KeypointNet."""
+"""Network modules: blocks, fire and residual hourglasses, KeypointNet, the CornerNet detectors."""

@@ -93,16 +93,19 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class ConvBlock(nn.Module):
-    """conv(k) + BN + ReLU (the vendored ``convolution``)."""
+    """conv(k) + BN + ReLU (the vendored ``convolution``); with
+    ``with_bn=False`` the conv has a bias and there is no ``bn``."""
 
-    def __init__(self, in_dim: int, out_dim: int, kernel: int = 3, stride: int = 1):
+    def __init__(self, in_dim: int, out_dim: int, kernel: int = 3, stride: int = 1,
+                 with_bn: bool = True):
         super().__init__()
         pad = (kernel - 1) // 2
-        self.conv = Conv2d(in_dim, out_dim, kernel, stride=stride, padding=pad, bias=False)
-        self.bn = BatchNorm2d(out_dim)
+        self.conv = Conv2d(in_dim, out_dim, kernel, stride=stride, padding=pad, bias=not with_bn)
+        self.bn = BatchNorm2d(out_dim) if with_bn else None
 
     def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+        y = self.conv(x)
+        return torch.relu(y if self.bn is None else self.bn(y))
 
 
 class StemConvBlock(ConvBlock):
@@ -164,6 +167,24 @@ class FireModule(nn.Module):
         y = self.bn1(self.conv1(x))
         y = self.bn2(torch.cat((self.conv_1x1(y), self.conv_3x3(y)), dim=1))
         return torch.relu(y + x) if self.skip else torch.relu(y)
+
+
+@torch.no_grad()
+def reset_like_jax(model: nn.Module, generator: torch.Generator | None = None):
+    """The JAX package's init: conv kernels U(+-1/sqrt(fan_in)), drawn from
+    ``generator`` in module order; conv biases zero; BatchNorm at identity."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            # flax counts fan_in over (kh, kw, in); torch's ConvTranspose2d
+            # weight is (in, out, kh, kw), Conv2d's (out, in/groups, kh, kw)
+            fan_in = w[:, 0].numel() if isinstance(m, nn.ConvTranspose2d) else w[0].numel()
+            bound = fan_in ** -0.5
+            w.copy_(torch.empty(w.shape).uniform_(-bound, bound, generator=generator))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
 
 
 class MergeBN(nn.Sequential):

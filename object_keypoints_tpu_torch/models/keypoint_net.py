@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from object_keypoints_tpu_torch.models.blocks import Conv2d, ConvBlock
+from object_keypoints_tpu_torch.models.blocks import Conv2d, ConvBlock, reset_like_jax
 from object_keypoints_tpu_torch.models.hourglass import HourglassStack
 from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
 
@@ -77,6 +77,11 @@ class KeypointNet(nn.Module):
                  stem_features: Sequence[int] = (128, 256), cnv_dim: int = 256,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if not stem_features[1] == dims[0] == cnv_dim:
+            raise ValueError(
+                "the hourglass input width dims[0] must equal stem_features[1] and "
+                f"cnv_dim, got {dims[0]}, {stem_features[1]}, {cnv_dim}"
+            )
         self.heatmaps_out = heatmaps_out
         self.backbone = HourglassStack(stacks, levels, dims, mods, stem_features, cnv_dim)
         self.dropout_rate = dropout
@@ -92,20 +97,9 @@ class KeypointNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """JAX-package init: kernels U(+-1/sqrt(fan_in)), conv biases zero
-        except the prediction heads' constant, BatchNorm at identity."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                w = m.weight
-                # flax counts fan_in over (kh, kw, in); torch's ConvTranspose2d
-                # weight is (in, out, kh, kw), Conv2d's (out, in/groups, kh, kw)
-                fan_in = w[:, 0].numel() if isinstance(m, nn.ConvTranspose2d) else w[0].numel()
-                bound = fan_in ** -0.5
-                w.copy_(torch.empty(w.shape).uniform_(-bound, bound, generator=generator))
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        """JAX-package init (``blocks.reset_like_jax``), then the prediction
+        heads' output bias constant."""
+        reset_like_jax(self, generator)
         for m in self.modules():
             if isinstance(m, PredictionModule):
                 m[2].bias.fill_(m.bias_init_value)

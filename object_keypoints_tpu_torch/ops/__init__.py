@@ -1,1 +1,2 @@
-"""Device ops: the stem kernel, heatmap decode, association."""
+"""Device ops: the stem kernel, heatmap decode, association, corner pools,
+corner decode, the NMS family."""

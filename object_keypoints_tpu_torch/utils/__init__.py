@@ -1,1 +1,1 @@
-"""Host utilities: visualization."""
+"""Host utilities: visualization, metrics, event files, detection configs."""

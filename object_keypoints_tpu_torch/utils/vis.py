@@ -1,5 +1,5 @@
-"""Visualization helpers for the eval CLI: heatmap overlays and a live
-window. The port's copy of the keypoint part of
+"""Visualization helpers: labeled boxes for the detect CLI, heatmap
+overlays and a live window for the eval CLI. The port's copy of
 ``object_keypoints_tpu/utils/vis.py``; host cv2/matplotlib, imported by the
 functions that use them."""
 
@@ -8,6 +8,39 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+
+def draw_bboxes(image, bboxes, font_size: float = 0.5, thresh: float = 0.5,
+                colors=None, seed: int = 0):
+    """Draw per-category labeled boxes. bboxes: {name: (n, 5) [x1,y1,x2,y2,
+    score]}. Category colors default to a *seeded* palette so outputs are
+    reproducible."""
+    import cv2
+
+    image = np.ascontiguousarray(image).copy()
+    rng = np.random.default_rng(seed)
+    for cat_name, dets in bboxes.items():
+        dets = np.asarray(dets)
+        if dets.size == 0:
+            continue
+        keep = dets[:, -1] > thresh
+        if colors is None:
+            color = (rng.random(3) * 0.6 + 0.4) * 255
+            color = tuple(int(c) for c in color)
+        else:
+            color = tuple(int(c) for c in colors[cat_name])
+        label_size = cv2.getTextSize(cat_name, cv2.FONT_HERSHEY_SIMPLEX, font_size, 2)[0]
+        for det in dets[keep]:
+            x1, y1, x2, y2 = det[:4].astype(np.int32)
+            if y1 - label_size[1] - 2 < 0:
+                ty0, ty1 = y1 + 2, y1 + label_size[1] + 2
+            else:
+                ty0, ty1 = y1 - label_size[1] - 2, y1 - 2
+            cv2.rectangle(image, (x1, ty0), (x1 + label_size[0], ty1), color, -1)
+            cv2.putText(image, cat_name, (x1, ty1), cv2.FONT_HERSHEY_SIMPLEX,
+                        font_size, (0, 0, 0), thickness=1)
+            cv2.rectangle(image, (x1, y1), (x2, y2), color, 2)
+    return image
 
 
 class LiveViewer:

@@ -780,3 +780,120 @@ def test_warm_int8_forward_never_waits_for_the_card(cuda, tmp_path, monkeypatch)
         infer(frames)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# --- the CornerNet detector -------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 3, 511, 767), (2, 3, 255, 383)])
+def test_stem_kernel_at_the_detectors_frames(cuda, shape, dtype):
+    """The detector's non-square frames (a 480x640 image padded to size |
+    127 at scale 1 and 0.5) through the kernel of their dtype."""
+    g, w, scale, bias = _stem_args(128, shape[2] + shape[3], cuda)
+    x = torch.randn(*shape, generator=g).to(cuda, dtype)
+    if dtype == torch.bfloat16:
+        _check_bf16_kernel(x, w, scale, bias)
+        return
+    out = stem_conv(x, w, scale, bias)
+    assert out.shape == (shape[0], 128, (shape[2] + 1) // 2, (shape[3] + 1) // 2)
+    torch.testing.assert_close(out, stem_conv_plain(x, w, scale, bias), atol=1e-4, rtol=0)
+
+
+def test_corner_pools_on_card_keep_bf16_channels_last(cuda):
+    from object_keypoints_tpu_torch.ops import corner_pool
+
+    x = torch.randn(2, 8, 33, 47, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    xc = x.to(cuda, memory_format=torch.channels_last)
+    for name in ("top_pool", "bottom_pool", "left_pool", "right_pool"):
+        out = getattr(corner_pool, name)(xc)
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out.cpu(), getattr(corner_pool, name)(x)), name
+
+
+def _nms_stack(seed, width, counts=(5, 40, 0, 90, 1)):
+    from object_keypoints_tpu_torch.ops import nms
+
+    rng = numpy.random.default_rng(seed)
+    per_class = []
+    for n in counts:
+        xy = rng.uniform(0, 200, (n, 2))
+        cols = [xy, xy + rng.uniform(4, 60, (n, 2)), rng.uniform(0.01, 1, (n, 3))]
+        per_class.append(numpy.concatenate(cols, axis=1).astype(numpy.float32)[:, :width])
+    return torch.from_numpy(nms.pad_class_dets(per_class, 128, width=width)), max(counts)
+
+
+@pytest.mark.parametrize("merge", [False, True])
+@pytest.mark.parametrize("method", [0, 1, 2])
+def test_soft_nms_on_card_matches_cpu(cuda, method, merge):
+    """The batched greedy loop on the card against the CPU on the same
+    padded stack, stopped after the largest class: scores within 1e-5,
+    boxes (merged ones move) within 1e-3 px."""
+    from object_keypoints_tpu_torch.ops import nms
+
+    stack, steps = _nms_stack(method, 7 if merge else 5)
+
+    def run(d):
+        if merge:
+            return nms.soft_nms_merge_batch(d, method=method, weight_exp=10, steps=steps)
+        return nms.soft_nms_batch(d, method=method, steps=steps)
+
+    card, cpu = run(stack.to(cuda)), run(stack)
+    assert card.device.type == "cuda" and torch.isfinite(card).all()
+    torch.testing.assert_close(card[..., 4].cpu(), cpu[..., 4], atol=1e-5, rtol=0)
+    torch.testing.assert_close(card.cpu(), cpu, atol=1e-3, rtol=0)
+
+
+def test_corner_decode_on_card_matches_cpu(cuda):
+    from object_keypoints_tpu_torch.ops.detection_decode import decode_detections
+
+    g = torch.Generator().manual_seed(0)
+    heads = [torch.randn(2, 80, 128, 192, generator=g) * 2,
+             torch.randn(2, 80, 128, 192, generator=g) * 2,
+             torch.randn(2, 1, 128, 192, generator=g) * 0.3,
+             torch.randn(2, 1, 128, 192, generator=g) * 0.3,
+             torch.rand(2, 2, 128, 192, generator=g), torch.rand(2, 2, 128, 192, generator=g)]
+    kw = dict(K=100, kernel=3, ae_threshold=0.5, num_dets=1000)
+    card = decode_detections(*(h.to(cuda) for h in heads), **kw)
+    cpu = decode_detections(*heads, **kw)
+    assert card.device.type == "cuda" and (cpu[..., 4] > -1).sum() > 20
+    assert torch.equal(card[..., 7].cpu(), cpu[..., 7])
+    torch.testing.assert_close(card.cpu(), cpu, atol=1e-5, rtol=0)
+
+
+def _tiny_detector(device, seed=2, categories=4):
+    """A tiny CornerNet-Squeeze Detector in float32 whose heat heads share
+    one kernel across classes (x -30), so that its random weights pair
+    corners of one class: tests/test_torch_port_detector.py's recipe."""
+    from object_keypoints_tpu_torch.inference.detector import Detector
+    from object_keypoints_tpu_torch.models.cornernet import tiny_cornernet
+    from object_keypoints_tpu_torch.utils.config import DetectionConfig, tiny_db_overrides
+
+    model = tiny_cornernet("CornerNet_Squeeze", categories,
+                           generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0, 0.1, generator=g)
+                m.running_mean.normal_(0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+        for heads in (model.tl_heats, model.br_heats):
+            conv = heads[0][1]
+            conv.weight.copy_(conv.weight[:1].expand_as(conv.weight) * -30.0)
+            conv.bias.copy_(-2.19 + 0.01 * torch.arange(categories, dtype=torch.float32))
+    db = {**tiny_db_overrides("CornerNet"), "categories": categories, "top_k": 12,
+          "num_dets": 40, "max_per_image": 100, "ae_threshold": 100.0,
+          "test_scales": [0.75, 1], "merge_bbox": True}
+    return Detector(model, DetectionConfig(db), device=device, dtype=torch.float32)
+
+
+def test_tiny_detector_on_card_matches_cpu(cuda):
+    image = numpy.random.default_rng(0).integers(0, 256, (96, 120, 3), dtype=numpy.uint8)
+    card, cpu = _tiny_detector(cuda)(image), _tiny_detector("cpu")(image)
+    assert sum(len(v) for v in cpu.values()) > 0
+    for key, want in cpu.items():
+        got = card[key]
+        assert got.shape == want.shape, key
+        numpy.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0, atol=1e-3)
+        numpy.testing.assert_allclose(got[:, 4], want[:, 4], rtol=0, atol=1e-5)

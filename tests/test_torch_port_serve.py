@@ -143,7 +143,10 @@ def test_port_never_imports_jax(tmp_path):
         "import json, sys\n"
         "import object_keypoints_tpu_torch\n"
         "from object_keypoints_tpu_torch.models import blocks, hourglass, keypoint_net\n"
+        "from object_keypoints_tpu_torch.models import cornernet\n"
         "from object_keypoints_tpu_torch.ops import _build, associate, decode, stem_conv\n"
+        "from object_keypoints_tpu_torch.ops import corner_pool, detection_decode, nms\n"
+        "from object_keypoints_tpu_torch.inference import detector\n"
         "from object_keypoints_tpu_torch.ops import int8_conv\n"
         "from object_keypoints_tpu_torch.geometry import cameras, linalg, stereo\n"
         "from object_keypoints_tpu_torch.pipeline import components, decode\n"
@@ -155,8 +158,9 @@ def test_port_never_imports_jax(tmp_path):
         "from object_keypoints_tpu_torch.training import device_data, losses, trainer\n"
         "from object_keypoints_tpu_torch.training import checkpoints, loop\n"
         "from object_keypoints_tpu_torch import precision\n"
-        "from object_keypoints_tpu_torch.utils import metrics, tb_events, vis\n"
+        "from object_keypoints_tpu_torch.utils import config, metrics, tb_events, vis\n"
         "from object_keypoints_tpu_torch.cli import eval_model, flagship, package_model, train\n"
+        "from object_keypoints_tpu_torch.cli import detect\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'object_keypoints_tpu'))\n"
         "print(json.dumps(bad))\n"
