@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train, int8 and detector paths.
+"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train, int8, detectors, detector eval.
 
     python3 chip_smoke.py
 
@@ -135,7 +135,39 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    decode by CUDA events, copy back, soft-NMS with its steps and device
    ops, host tail), device ops and busy share of one traced call, the
    forward's device time by kernel (the corner pools' cummax among them)
-   and peak memory.
+   and peak memory;
+13. CornerNet-Saccade's two-stage inference and the detector eval. (a)
+   ``inference.saccade.SaccadeDetector`` (as the detect CLI runs it) at full
+   width (116,969,339 parameters) in bf16 with seeded weights on phase 12's
+   480x640 image under configs/CornerNet_Saccade.json: the heat heads
+   planted as in phase 12 and the attention kernels x 4 (seeded attention
+   stays under its 0.3 threshold), so stage 1's two 255x255 views propose
+   more than att_max_crops (30) locations and stage 2 runs a full bucket
+   of 32 crops. Checks: two stages, one bf16 stem launch each and none
+   fp32; the final soft-NMS has rows; the card's float32 crop batch
+   against the CPU's (1e-5); each stage's decode on the CPU from the card's
+   heads (canonical order, classes and boxes equal, scores 1e-6); the
+   host's bookkeeping redone on the stages' copies back proposes what the
+   driver cropped; the final soft-NMS (sigma 0.7) card against CPU on the
+   same detections (counts equal, boxes 2e-4 px, scores 1e-5); the bf16
+   stem against its plain version at (2, 3, 255, 255) and (32, 3, 255,
+   255). Prints images/s over warm calls, the ms per stage (the crop
+   gather and crop + forward + decode by CUDA events, the copy back, the
+   host bookkeeping), the soft-NMS's ms, steps and device ops, device ops
+   and busy share of one traced call, peak memory, and the stem kernel at
+   the stages' frames beside its bound, its plain version and cuDNN. (b)
+   ``cli.evaluate_detector.main`` over 8 synthetic COCO images of 192x256
+   (``data.synthetic.make_synthetic_coco_dataset``, seed 0), from .pth
+   snapshots, once on the card and once with --cpu: CornerNet-Squeeze at
+   full width in bf16 (heads planted), and CornerNet-Squeeze and
+   CornerNet-Saccade --tiny in float32 (heads planted). The float32 runs'
+   results.json hold to the CPU's row for row (counts, images and classes
+   equal, boxes 1e-3 px, scores 1e-5); the bf16 run's rows cannot (cuDNN
+   and the CPU round bf16 partial sums differently, and the top-K follows
+   the rounding), so they hold to the CPU's decode, soft-NMS and cap of
+   the card's own heads, image by image, with the same tolerances; the 12
+   stats of every pair within 1e-3. Prints each eval's images/s and its
+   COCOeval seconds on both devices.
 
 The process's TF32 flags stay at torch's defaults: the port's entry points
 (``infer``, the train and eval steps) pin TF32 off themselves; phases 3 and
@@ -145,8 +177,9 @@ Any failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON and ``{"ok": true, "device": {...}}``. The stem
 wrapper counts launches in all and per kernel; phases 4, 5, 6, 8, 9 (its
 eval_steps), 10 (the loop's runs and the packaged models' serves), 11
-(the int8 serve steps and the int8 artifact's serve) and 12 (the detectors'
-calls) each set the counts to 0 before they run and read them after, and
+(the int8 serve steps and the int8 artifact's serve), 12 (the detectors'
+calls) and 13 (the saccade's calls, the eval CLI's runs on the card)
+each set the counts to 0 before they run and read them after, and
 the kernels' line gives each kernel's launches from those runs. The int8 convolutions run on cuBLASLt's
 int8 GEMM, not on a kernel of this repository, so they are not in that line;
 phase 11 counts their launches apart.
@@ -1495,20 +1528,18 @@ DETECT_TIMED = {"CornerNet_Squeeze": 5, "CornerNet": 3}  # warm calls timed
 HEAT_GAIN = -30.0
 
 
-def plant_heads(model):
+def plant_heads(model, att_gain=None):
     """Seeded random heads pair no corners (their top corners fall in other
     classes or inverted boxes), which would leave the decode's pairing and
     the soft-NMS without work. So each heat head's output kernel becomes its
     class 0 kernel, shared by every class and scaled by HEAT_GAIN, with
-    biases -2.19 + 0.01 c: tests/test_torch_port_detector.py's recipe. On
-    the 480x640 image it gives CornerNet-Squeeze ~100 and CornerNet ~1,100
-    valid pairings of one or two classes."""
-    with torch.no_grad():
-        for heads in (model.tl_heats, model.br_heats):
-            for head in heads:
-                conv = head[1]
-                conv.weight.copy_(conv.weight[:1].expand_as(conv.weight) * HEAT_GAIN)
-                conv.bias.copy_(-2.19 + 0.01 * torch.arange(conv.bias.numel(), dtype=torch.float32))
+    biases -2.19 + 0.01 c (``testing.plant_detector_heads``,
+    tests/test_torch_port_detector.py's recipe). On the 480x640 image it
+    gives CornerNet-Squeeze ~100 and CornerNet ~1,100 valid pairings of one
+    or two classes. ``att_gain`` scales the saccade's attention kernels."""
+    from object_keypoints_tpu_torch.testing import plant_detector_heads
+
+    plant_detector_heads(model, HEAT_GAIN, att_gain=att_gain)
 
 
 def detector_for(arch, config_name=None):
@@ -1552,9 +1583,9 @@ def check_detections(what, got, want, atol_box, atol_score):
     return {"box_px": box, "score": score, "valid": int((want[..., 4] > -1).sum())}
 
 
-def check_nms(what, card, cpu):
+def check_nms(what, card, cpu, atol_box=1e-3):
     """Per-class soft-NMS results: equal counts per class; boxes within
-    1e-3 px and scores within 1e-5, in the canonical (box) order."""
+    atol_box px and scores within 1e-5, in the canonical (box) order."""
     worst = {"box_px": 0.0, "score": 0.0}
     for j in cpu:
         a, b = card[j], cpu[j]
@@ -1564,7 +1595,7 @@ def check_nms(what, card, cpu):
         a, b = (x[np.lexsort((x[:, 3], x[:, 2], x[:, 1], x[:, 0]))] for x in (a, b))
         worst["box_px"] = max(worst["box_px"], float(np.abs(a[:, :4] - b[:, :4]).max()))
         worst["score"] = max(worst["score"], float(np.abs(a[:, 4] - b[:, 4]).max()))
-    assert worst["box_px"] <= 1e-3 and worst["score"] <= 1e-5, (what, worst)
+    assert worst["box_px"] <= atol_box and worst["score"] <= 1e-5, (what, worst)
     return worst
 
 
@@ -1791,6 +1822,309 @@ def phase_detector(card):
     return {k: sum(c[k] for c in launches) for k in launches[0]}
 
 
+SACCADE_TIMED = 5  # warm calls timed
+SACCADE_ATT_GAIN = 4.0
+EVAL_IMAGES, EVAL_IMAGE_SIZE = 8, (192, 256)  # phase 13 (b)'s synthetic COCO set
+
+
+def saccade_detector():
+    """CornerNet-Saccade at full width from seeded weights, bf16 on the
+    card, as the detect CLI builds it; its heat heads planted (``plant_heads``)
+    and its attention kernels scaled by SACCADE_ATT_GAIN with bias 0: seeded
+    attention heads give sigmoid(-2.19) ~ 0.1, under the 0.3 threshold, so
+    stage 2 would never run. Planted, stage 1 proposes more than
+    att_max_crops locations and stage 2 runs a full bucket."""
+    from object_keypoints_tpu_torch.inference.saccade import SaccadeDetector
+    from object_keypoints_tpu_torch.models.cornernet import cornernet_saccade
+    from object_keypoints_tpu_torch.utils.config import CONFIG_DIR, DetectionConfig, load_cfg
+
+    config = DetectionConfig(load_cfg(CONFIG_DIR / "CornerNet_Saccade.json")[1])
+    model = cornernet_saccade(config["categories"], generator=torch.Generator().manual_seed(SEED))
+    plant_heads(model, att_gain=SACCADE_ATT_GAIN)
+    return SaccadeDetector(model, config, device="cuda", dtype=torch.bfloat16)
+
+
+def saccade_stages(det, image, stages):
+    """Each stage of one warm call again, part by part: the crop gather and
+    crop + forward + decode by CUDA events, the copy back and the host
+    bookkeeping by the host clock; the card's crops against the CPU's (the
+    first stage's, 1e-5) and each stage's decode on the CPU from the card's
+    heads (classes and boxes equal, scores within 1e-6). Returns the rows
+    and every stage's detections, as the driver keeps them."""
+    from object_keypoints_tpu_torch.inference import saccade
+    from object_keypoints_tpu_torch.ops.detection_decode import decode_detections
+    from object_keypoints_tpu_torch.precision import no_tf32
+
+    config, model = det.config, det.model
+    height, width = image.shape[:2]
+    img_dev = torch.from_numpy(np.ascontiguousarray(image)).cuda()
+    img_cpu = torch.from_numpy(np.ascontiguousarray(image))
+    kw = dict(decode_kwargs(config), no_border=True)
+    rows, all_dets, locations = [], [], None
+    for s in stages:
+        if locations is not None:  # the driver crops what the bookkeeping proposed
+            assert np.array_equal(s["locations"], locations[:s["crops"]]), s["stage"]
+        locations, m = s["locations"], s["crops"]
+        locs = torch.from_numpy(saccade.pad_locations(config, locations)).cuda()
+        assert len(locs) == s["bucket"]
+        centers, sizes = locs[:, :2], locs[:, 2:]
+        crop_ms = cuda_ms(lambda: det.crops(img_dev, centers, sizes), iters=5, warmup=1)
+        step_ms = cuda_ms(lambda: det.forward(det.frames(det.crops(img_dev, centers, sizes)[0]),
+                                              s["no_att"]), iters=5, warmup=1)
+        canvases, offsets = det.crops(img_dev, centers, sizes)
+        frames = det.frames(canvases)
+        dets, atts = det.forward(frames, s["no_att"])
+        (host, host_atts, host_off), copy_ms = host_ms(lambda: det.fetch(dets, atts, offsets))
+        row = {"stage": s["stage"], "crops": m, "bucket": s["bucket"], "frames": list(frames.shape),
+               "proposed": s["proposed"], "no_att": s["no_att"], "crop_ms": crop_ms,
+               "crop_forward_decode_ms": step_ms, "copy_back_ms": copy_ms,
+               "decode_call_host_ms": s["decode_ms"], "bookkeeping_host_ms": s["host_ms"]}
+        with torch.inference_mode():
+            if s is stages[0]:  # the float32 crop batch, card against CPU
+                cpu_crops, cpu_off = saccade.crop_zoom_batch(
+                    det.normalize(img_cpu), centers.cpu(), sizes.cpu(),
+                    tuple(config["input_size"]))
+                row["crops_card_vs_cpu"] = check_close("saccade crops: card vs CPU", canvases.cpu(),
+                                                       cpu_crops, atol=1e-5, rtol=0)
+                assert torch.equal(offsets.cpu(), cpu_off)
+            with no_tf32():  # this stage's decode on the CPU from the card's heads
+                heads = model.heads(model.hg(frames)[0][-1], model.stacks - 1)
+                card_dets = decode_detections(*heads, **kw).cpu().numpy()
+            cpu_dets = decode_detections(*(h.cpu() for h in heads), **kw).numpy()
+        assert np.array_equal(card_dets, host), "the fused stage and its parts disagree"
+        row["decode_card_vs_cpu"] = check_detections(
+            f"saccade stage {s['stage']} decode: card vs CPU", card_dets, cpu_dets,
+            atol_box=0.0, atol_score=1e-6)
+
+        # the driver's host bookkeeping on this stage's copy back
+        t0 = time.perf_counter()
+        host, host_off = host[:m].copy(), host_off[:m]
+        if s is stages[0]:
+            scales = locations[:, 2]
+            next_locations = saccade.decode_atts(
+                config, [a[:m] for a in host_atts], config["att_scales"][0], scales, host_off,
+                height, width, config["att_thresholds"][0])
+        saccade._rescale_remap(config, host, locations[:, 2], host_off)
+        host = host.reshape(-1, 8)
+        host = host[host[:, 4] > (0.3 if s is stages[0] else -1)]
+        if s is stages[0] and config["ref_dets"]:
+            next_locations = saccade.location_nms(
+                np.concatenate([next_locations, saccade.get_ref_locs(host)], axis=0), thresh=16)
+        row["bookkeeping_ms"] = 1e3 * (time.perf_counter() - t0)
+        row["rows_kept"] = len(host)
+        all_dets.append(host)
+        if s is stages[0]:
+            assert len(next_locations) == s["proposed"], (len(next_locations), s["proposed"])
+            locations = next_locations
+        rows.append(row)
+    return rows, np.concatenate(all_dets, axis=0)
+
+
+def phase_saccade(card):
+    """CornerNet-Saccade's two-stage inference through ``SaccadeDetector`` at
+    full width, bf16, seeded weights with planted heads, on phase 12's
+    480x640 image."""
+    from object_keypoints_tpu_torch.inference import saccade
+
+    phase_t0 = time.perf_counter()
+    image = np.random.default_rng(SEED).integers(0, 256, (*DETECT_IMAGE, 3), dtype=np.uint8)
+    det = saccade_detector()
+    config = det.config
+    n_params = sum(p.numel() for p in det.model.parameters())
+    assert n_params == 116_969_339, n_params
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_stem_counts()  # the main path's run starts here
+    boxes = det(image)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SACCADE_TIMED):
+        boxes = det(image)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stats = []
+    boxes = det(image, stats=stats)
+    torch.cuda.synchronize()
+    launches = stem_counts()  # ... and ends here
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    stages, nms = stats[:-1], stats[-1]
+    calls = SACCADE_TIMED + 2
+    # every stage's stem went to the bf16 kernel, one launch a stage
+    assert launches == {"all": calls * len(stages), "stem_conv_bf16": calls * len(stages),
+                        "stem_conv_fp32": 0}, (launches, len(stages))
+    # stage 1 proposed more than att_max_crops locations; stage 2 ran a full bucket
+    assert len(stages) == 2 and stages[0]["crops"] == len(config["init_sizes"]), stages
+    assert stages[0]["proposed"] > config["att_max_crops"], stages[0]["proposed"]
+    assert stages[1]["crops"] == config["att_max_crops"] and stages[1]["no_att"], stages[1]
+    assert nms["rows"] > 0 and nms["steps"] > 0, nms
+    assert sorted(boxes, key=int) == [str(i) for i in range(1, 81)]
+    for v in boxes.values():
+        assert v.shape[1] == 5 and np.isfinite(v).all()
+    n_boxes = sum(len(v) for v in boxes.values())
+    assert 0 < n_boxes <= config["max_per_image"] + 5, n_boxes  # ties at the cap stay
+
+    stage_rows, detections = saccade_stages(det, image, stages)
+    assert len(detections) == nms["rows"], (len(detections), nms["rows"])
+    # the final soft-NMS on the same detections, card against CPU
+    (card_nms, steps), nms_ms = host_ms(
+        lambda: saccade.saccade_soft_nms(config, detections, "cuda"))
+    cpu_nms, cpu_steps = saccade.saccade_soft_nms(config, detections, "cpu")
+    assert steps == cpu_steps == nms["steps"]
+    nms_check = check_nms("saccade soft-NMS: card vs CPU", card_nms, cpu_nms, atol_box=2e-4)
+    nms_ops = device_events(lambda: saccade.saccade_soft_nms(config, detections, "cuda"))
+    busy, ops, wall = traced_busy_share(lambda: det(image))
+
+    # the bf16 stem kernel at the stages' frames, on the detector's own
+    # stem weights: the views and the bucket
+    img_dev = torch.from_numpy(image).cuda()
+    canvases = []
+    for s in stages:
+        locs = torch.from_numpy(saccade.pad_locations(config, s["locations"])).cuda()
+        canvases.append(det.crops(img_dev, locs[:, :2], locs[:, 2:])[0])
+    result = dict(
+        params=n_params, image=list(DETECT_IMAGE), dtype="bfloat16",
+        images_per_sec=SACCADE_TIMED / seconds, ms_per_image=1e3 * seconds / SACCADE_TIMED,
+        stages=stage_rows, nms_ms=nms_ms, nms_steps=steps, nms_rows=nms["rows"],
+        nms_driver_ms=nms["nms_ms"], nms_device_ops=len(nms_ops),
+        nms_device_busy_ms=busy_us(nms_ops) / 1e3, nms_launches_per_step=len(nms_ops) / steps,
+        nms_card_vs_cpu=nms_check, device_ops_per_image=ops, device_busy_share=busy,
+        traced_wall_ms=wall, peak_mem_gib=peak_mem, boxes=n_boxes, stem_launches=launches,
+        stem_rows=detector_stem_rows(det, canvases), card=card,
+        tolerance="crops: 1e-5; stage decode from the card's heads: canonical order, classes "
+                  "and boxes equal, scores 1e-6; soft-NMS: counts per class equal, boxes 2e-4 "
+                  "px, scores 1e-5; stem: rtol = atol = 1e-2 (one bf16 ulp)")
+    log("saccade", **result)
+    del det, canvases
+    torch.cuda.empty_cache()
+    log("saccade_phase", phase_s=time.perf_counter() - phase_t0)
+    return launches
+
+
+def cpu_eval_of_card_heads(snapshot, db, config):
+    """results.json rows of CornerNet-Squeeze at full width as the CPU
+    computes them from the card's heads: the forward on the card in bf16
+    (the eval's own), then the corner decode, rescale, soft-NMS and cap of
+    ``cornernet_inference`` on the CPU."""
+    import cv2
+
+    from object_keypoints_tpu_torch.cli.detect import load_state_dict
+    from object_keypoints_tpu_torch.inference.detector import Detector, cornernet_inference
+    from object_keypoints_tpu_torch.models.cornernet import cornernet_squeeze
+    from object_keypoints_tpu_torch.ops.detection_decode import decode_detections
+    from object_keypoints_tpu_torch.precision import no_tf32
+    from object_keypoints_tpu_torch.testing import coco_rows
+
+    model = cornernet_squeeze(config["categories"])
+    model.load_state_dict(load_state_dict(snapshot), strict=True)
+    det = Detector(model, config, device="cuda", dtype=torch.bfloat16)
+
+    def decode_fn(batch, **kw):
+        with torch.inference_mode(), no_tf32():
+            heads = model.heads(model.hg(det.frames(batch))[-1], model.stacks - 1)
+        return decode_detections(*(h.cpu() for h in heads), **kw).numpy()
+
+    results = {}
+    for ind, image_id in enumerate(db.image_ids):
+        image = cv2.imread(db.image_path(ind))[..., ::-1]
+        results[image_id] = cornernet_inference(config, decode_fn, image, device="cpu")
+    return coco_rows(db.convert_to_coco(results))
+
+
+def phase_detector_eval(card):
+    """The detector eval CLI (``cli.evaluate_detector``) over a synthetic
+    COCO set (the port's make_synthetic_coco_dataset, seed 0, EVAL_IMAGES of
+    EVAL_IMAGE_SIZE), each model from a .pth snapshot, once on the card and
+    once with --cpu: CornerNet-Squeeze at full width in bf16 with planted
+    heads, and CornerNet-Squeeze and CornerNet-Saccade --tiny (float32,
+    planted). The float32 runs' results.json hold to the CPU's row for row.
+    The bf16 runs do not (cuDNN and the CPU round other partial sums to
+    bf16), so the card's bf16 results.json holds to the CPU's decode,
+    soft-NMS and cap of the card's own heads, image by image, and the --cpu
+    run's 12 stats to the card's within 1e-3."""
+    import contextlib
+    import io
+
+    from object_keypoints_tpu_torch.cli import evaluate_detector
+    from object_keypoints_tpu_torch.data.coco import CocoDetectionDataset
+    from object_keypoints_tpu_torch.data.synthetic import make_synthetic_coco_dataset
+    from object_keypoints_tpu_torch.models.cornernet import cornernet_squeeze, tiny_cornernet
+    from object_keypoints_tpu_torch.testing import (
+        coco_rows,
+        compare_coco_rows,
+        plant_detector_heads,
+        randomize_batchnorm,
+    )
+    from object_keypoints_tpu_torch.utils.config import CONFIG_DIR, DetectionConfig, load_cfg
+
+    phase_t0 = time.perf_counter()
+    launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ann, images = make_synthetic_coco_dataset(os.path.join(tmp, "data"), n_images=EVAL_IMAGES,
+                                                  image_size=EVAL_IMAGE_SIZE, seed=SEED)
+        db = CocoDetectionDataset(ann, images)
+        squeeze = cornernet_squeeze(generator=torch.Generator().manual_seed(SEED))
+        plant_heads(squeeze)
+        os.makedirs(os.path.join(tmp, "full"))
+        torch.save(squeeze.state_dict(), os.path.join(tmp, "full", "CornerNet_Squeeze_1.pth"))
+        for arch, gains in (("CornerNet_Squeeze", (3.0, None)), ("CornerNet_Saccade", (-3.0, 4.0))):
+            tiny = tiny_cornernet(arch, 80, generator=torch.Generator().manual_seed(1))
+            randomize_batchnorm(tiny, torch.Generator().manual_seed(1))
+            plant_detector_heads(tiny, gains[0], att_gain=gains[1])
+            torch.save(tiny.state_dict(), os.path.join(tmp, f"{arch}_1.pth"))
+        for arch, tiny in (("CornerNet_Squeeze", False), ("CornerNet_Squeeze", True),
+                           ("CornerNet_Saccade", True)):
+            snapshots = tmp if tiny else os.path.join(tmp, "full")
+            argv = [arch, "--annotations", ann, "--image-dir", images, "--snapshot-dir", snapshots,
+                    "--testiter", "1"] + (["--tiny"] if tiny else [])
+            runs = {}
+            for where in ("card", "cpu"):
+                out = io.StringIO()
+                reset_stem_counts()  # the card's run is a main path
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    got = evaluate_detector.main(
+                        [*argv, "--result-dir", os.path.join(tmp, where, arch + "_tiny" * tiny)]
+                        + (["--cpu"] if where == "cpu" else []))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if where == "card":
+                    launches.append(stem_counts())
+                last = json.loads(out.getvalue().strip().splitlines()[-1])
+                result_json = os.path.join(tmp, where, arch + "_tiny" * tiny, "1", "validation",
+                                           "results.json")
+                with contextlib.redirect_stdout(io.StringIO()):  # COCOeval alone
+                    _, coco_ms = host_ms(lambda: db.evaluate(result_json, list(range(1, 81)),
+                                                             list(db.image_ids)))
+                runs[where] = dict(stats=got["stats"], rows=coco_rows(result_json), wall_s=wall,
+                                   images_per_sec=1.0 / last["avg_time_s"],
+                                   cocoeval_s=coco_ms / 1e3, mAP=last["mAP"])
+            card_run, cpu_run = runs["card"], runs["cpu"]
+            stats_err = float(np.abs(np.subtract(card_run["stats"], cpu_run["stats"])).max())
+            fields = dict(arch=arch, tiny=tiny, dtype="float32" if tiny else "bfloat16",
+                          images=EVAL_IMAGES, image_size=list(EVAL_IMAGE_SIZE),
+                          rows_card=len(card_run["rows"]), rows_cpu=len(cpu_run["rows"]),
+                          mAP=card_run["mAP"], stats_card_vs_cpu=stats_err,
+                          **{f"{w}_{k}": v for w, r in runs.items() for k, v in r.items()
+                             if k not in ("stats", "rows", "mAP")},
+                          stem_launches=launches[-1], card=card)
+            if tiny:
+                fields["card_vs_cpu"] = compare_coco_rows(f"{arch} --tiny eval: card vs CPU",
+                                                          card_run["rows"], cpu_run["rows"])
+            else:
+                _, db_cfg = load_cfg(CONFIG_DIR / f"{arch}.json")
+                want = cpu_eval_of_card_heads(os.path.join(snapshots, f"{arch}_1.pth"), db,
+                                              DetectionConfig(db_cfg))
+                fields["card_vs_cpu_of_card_heads"] = compare_coco_rows(
+                    f"{arch} eval: card vs the CPU's decode of the card's heads",
+                    card_run["rows"], want)
+            log("detector_eval", **fields,
+                tolerance="results.json rows equal in count, image and class; boxes 1e-3 px, "
+                          "scores 1e-5; the 12 stats 1e-3")
+            assert stats_err <= 1e-3, (arch, tiny, stats_err)
+    log("detector_eval_phase", phase_s=time.perf_counter() - phase_t0)
+    return {k: sum(c[k] for c in launches) for k in launches[0]}
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1803,6 +2137,8 @@ def main():
     paths.append(phase_loop(card, bare_step_ms))
     paths.append(phase_int8(card))
     paths.append(phase_detector(card))
+    paths.append(phase_saccade(card))
+    paths.append(phase_detector_eval(card))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

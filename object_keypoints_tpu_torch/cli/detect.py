@@ -3,6 +3,7 @@
     python -m object_keypoints_tpu_torch.cli.detect image.jpg --random
     python -m object_keypoints_tpu_torch.cli.detect image.jpg --arch CornerNet \
         --snapshot cornernet.pth --out detections.jpg
+    python -m object_keypoints_tpu_torch.cli.detect image.jpg --arch CornerNet_Saccade --random
 
 The port of scripts/detect.py, with its flags and ``--cpu``. The model is
 built from ``configs/<arch>.json`` and computes in bf16, as the JAX CLI's
@@ -11,7 +12,9 @@ state_dict file under the reference hg_net's names (a Lightning checkpoint's
 ``state_dict`` unwrapped, its ``model.`` and any DataParallel ``module.``
 prefix dropped); the JAX CLI's Orbax snapshots need JAX and are not read
 here. ``--random`` runs weights drawn from a seeded ``torch.Generator``.
-CornerNet_Saccade's multi-stage inference is not ported yet.
+CornerNet and CornerNet_Squeeze run through ``inference.detector.Detector``,
+CornerNet_Saccade through its two-stage inference
+(``inference.saccade.SaccadeDetector``).
 """
 
 import argparse
@@ -19,6 +22,7 @@ import argparse
 import torch
 
 from object_keypoints_tpu_torch.inference.detector import Detector
+from object_keypoints_tpu_torch.inference.saccade import SaccadeDetector
 from object_keypoints_tpu_torch.models.cornernet import FACTORIES
 from object_keypoints_tpu_torch.utils.config import CONFIG_DIR, DetectionConfig, load_cfg
 from object_keypoints_tpu_torch.utils.vis import draw_bboxes
@@ -57,11 +61,6 @@ def main(argv=None):
     flags = read_args(argv)
     import cv2
 
-    if flags.arch == "CornerNet_Saccade":
-        raise NotImplementedError(
-            "CornerNet_Saccade's multi-stage inference (inference/saccade.py of the JAX "
-            "package) is not ported yet: it is the next part of the detector surface "
-            "(ROADMAP.md, section 1)")
     if not (flags.snapshot or flags.random):
         raise SystemExit("provide --snapshot or pass --random for a smoke test")
     _, db_cfg = load_cfg(CONFIG_DIR / f"{flags.arch}.json")
@@ -73,8 +72,8 @@ def main(argv=None):
     image = cv2.imread(flags.image)
     if image is None:
         raise SystemExit(f"cannot read image {flags.image}")
-    detector = Detector(model, config, device="cpu" if flags.cpu else "cuda",
-                        dtype=torch.bfloat16)
+    facade = SaccadeDetector if model.with_attention else Detector
+    detector = facade(model, config, device="cpu" if flags.cpu else "cuda", dtype=torch.bfloat16)
     named = detector(image[..., ::-1])
 
     overlay = draw_bboxes(image, named, thresh=0.3)

@@ -1,1 +1,1 @@
-"""Data layer: sequence reading, target rendering, augmentation, writers."""
+"""Data layer: sequence reading, target rendering, augmentation, writers, COCO sets."""

@@ -1,12 +1,13 @@
-"""Synthetic keypoint sequences for tests, demos and the card's smoke run.
+"""Synthetic keypoint sequences and a synthetic COCO detection set.
 
-The port's copy of the keypoint half of ``object_keypoints_tpu/data/
-synthetic.py``: world keypoints, an orbiting camera trajectory and frames
+The port's copy of ``object_keypoints_tpu/data/synthetic.py``. Sequences:
+world keypoints, an orbiting camera trajectory and frames
 with bright gaussian blobs at the projected keypoints, in the on-disk layout
 ``SceneDataset`` reads. The same seed draws the same world points, poses and
 noise as the JAX writer. The blobs sit at the port's float64 projections,
 the JAX writer's at its float32 ones (~1e-4 px apart), so a few blob pixels
-may differ by one level.
+may differ by one level. ``make_synthetic_coco_dataset`` writes the JAX
+package's COCO-format rectangles set, draw for draw.
 """
 
 from __future__ import annotations
@@ -130,3 +131,73 @@ def make_synthetic_dataset_tree(root: str, calibration_file: str,
                 seed=sequence_seed(split, i), **kwargs,
             )
     return os.path.join(root, "train"), os.path.join(root, "val")
+
+
+def make_synthetic_coco_dataset(root: str, n_images: int = 64,
+                                image_size=(64, 64), seed: int = 0,
+                                n_categories: int = 80,
+                                max_objects: int = 2):
+    """COCO-format detection dataset of solid colored rectangles.
+
+    Two visually-distinct object classes (class 1: warm filled rectangle,
+    class 2: cool filled rectangle) on a noisy background, non-overlapping,
+    written as JPEGs under ``root/images`` with ``root/annotations.json``.
+    The annotation JSON carries the full category list so the dataset's
+    contiguous class-id mapping matches the reference's COCO setup
+    (core/dbs/coco.py).
+
+    Returns (annotation_json_path, image_dir).
+    """
+    import json
+
+    import cv2
+
+    h, w = image_size
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    images, annotations = [], []
+    ann_id = 1
+    for i in range(n_images):
+        img = rng.integers(0, 40, size=(h, w, 3)).astype(np.uint8)
+        n_obj = int(rng.integers(1, max_objects + 1))
+        boxes = []
+        for _ in range(n_obj):
+            for _attempt in range(20):
+                bw = int(rng.integers(12, w // 2))
+                bh = int(rng.integers(12, h // 2))
+                x = int(rng.integers(1, w - bw - 1))
+                y = int(rng.integers(1, h - bh - 1))
+                # keep instances separated so boxes never overlap (clean AE)
+                if all(x + bw < bx or bx + bbw < x or y + bh < by or by + bbh < y
+                       for bx, by, bbw, bbh, _c in boxes):
+                    break
+            else:
+                continue
+            cls = int(rng.integers(1, 3))
+            color = ((200, 60, 40) if cls == 1 else (40, 80, 220))
+            jitter = rng.integers(-20, 20, size=3)
+            bgr = tuple(int(np.clip(c + j, 0, 255))
+                        for c, j in zip(color, jitter))
+            cv2.rectangle(img, (x, y), (x + bw, y + bh), bgr, thickness=-1)
+            boxes.append((x, y, bw, bh, cls))
+        name = f"{i:05d}.jpg"
+        cv2.imwrite(os.path.join(img_dir, name), img)
+        images.append({"id": i + 1, "file_name": name, "width": w, "height": h})
+        for (x, y, bw, bh, cls) in boxes:
+            annotations.append({
+                "id": ann_id, "image_id": i + 1, "category_id": cls,
+                "bbox": [float(x), float(y), float(bw), float(bh)],
+                "area": float(bw * bh), "iscrowd": 0,
+            })
+            ann_id += 1
+    ann = {
+        "images": images,
+        "annotations": annotations,
+        "categories": [{"id": c, "name": f"class_{c}"}
+                       for c in range(1, n_categories + 1)],
+    }
+    ann_path = os.path.join(root, "annotations.json")
+    with open(ann_path, "w") as f:
+        json.dump(ann, f)
+    return ann_path, img_dir

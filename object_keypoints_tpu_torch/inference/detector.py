@@ -223,9 +223,12 @@ class Detector:
     @torch.inference_mode()
     def frames(self, batch: np.ndarray):
         """A host NHWC float32 batch -> contiguous NCHW frames in ``dtype``
-        on the device: one upload, one layout-and-type copy there."""
+        on the device: one upload, one layout-and-type copy there. (``to``
+        alone may hand back the permuted view when the type is unchanged: a
+        batch of one whose batch stride is 0 suggests no memory format.)"""
         x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
-        return x.permute(0, 3, 1, 2).to(dtype=self.dtype, memory_format=torch.contiguous_format)
+        return x.permute(0, 3, 1, 2).to(dtype=self.dtype,
+                                        memory_format=torch.contiguous_format).contiguous()
 
     @torch.inference_mode()
     def forward(self, frames, **decode_kwargs):

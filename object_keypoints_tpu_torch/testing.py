@@ -13,10 +13,16 @@
   ``training.device_data.build_device_store`` takes.
 - ``synthetic_batch``: a seeded train batch of Gaussian-blob targets, the
   batch of tests/test_training.py made with numpy, for both packages.
+- ``randomize_batchnorm`` / ``plant_detector_heads``: seeded CornerNet
+  weights that give the decode, the NMS and the saccade's later stages
+  work (random heads pair no corners and attend nowhere).
+- ``coco_rows`` / ``compare_coco_rows``: COCO results (results.json) as
+  rows, and two of them compared as sets of boxes.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -192,3 +198,77 @@ def synthetic_batch(seed: int = 0, n: int = 2, size: int = 32, k: int = 3) -> di
     centers[..., 0] = 0.5
     return {"frame": frame, "heatmaps": heat, "depth": np.clip(heat * 1.5, 0, None),
             "centers": centers}
+
+
+@torch.no_grad()
+def randomize_batchnorm(model, generator: torch.Generator):
+    """Every BatchNorm's scale, shift and running statistics drawn at
+    random (init leaves them at identity, which hides layout errors)."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.weight.uniform_(0.5, 1.5, generator=generator)
+            m.bias.normal_(0, 0.1, generator=generator)
+            m.running_mean.normal_(0, 0.1, generator=generator)
+            m.running_var.uniform_(0.5, 1.5, generator=generator)
+
+
+@torch.no_grad()
+def plant_detector_heads(model, heat_gain: float, att_gain: float | None = None,
+                         att_bias: float = 0.0):
+    """Seeded CornerNet heads that pair corners: each heat head's output
+    kernel becomes its class 0 kernel, shared by every class and scaled by
+    ``heat_gain``, with biases -2.19 + 0.01 c (tests/test_torch_port_detector.py's
+    recipe). With ``att_gain``, each attention head's output kernel is
+    scaled by it and its bias set to ``att_bias``, so that the saccade's
+    attention passes its thresholds and later stages get crops."""
+    for heads in (model.tl_heats, model.br_heats):
+        for head in heads:
+            conv = head[1]
+            conv.weight.copy_(conv.weight[:1].expand_as(conv.weight) * heat_gain)
+            conv.bias.copy_(-2.19 + 0.01 * torch.arange(conv.bias.numel(), dtype=torch.float32))
+    if att_gain is not None:
+        for stack in model.att_modules:
+            for head in stack:
+                head[1].weight.mul_(att_gain)
+                head[1].bias.fill_(att_bias)
+
+
+def coco_rows(results) -> np.ndarray:
+    """COCO results (a results.json path or its list of dicts) -> float64
+    rows (image_id, category_id, x, y, w, h, score), ordered by image,
+    class and box."""
+    if isinstance(results, (str, os.PathLike)):
+        with open(results) as f:
+            results = json.load(f)
+    table = np.array([[r["image_id"], r["category_id"], *r["bbox"], r["score"]]
+                      for r in results], np.float64).reshape(-1, 7)
+    return table[np.lexsort(table[:, 5::-1].T)]
+
+
+def compare_coco_rows(what: str, got: np.ndarray, want: np.ndarray, atol_box: float = 1e-3,
+                      atol_score: float = 1e-5) -> dict:
+    """Two ``coco_rows`` tables as sets: equal counts of rows per (image,
+    class), each row of got paired with the nearest unpaired row of want in
+    its group (greedy on max |box| + |score|: a sorted order pairs the
+    wrong rows where boxes clipped to the border tie), boxes within
+    atol_box px and scores within atol_score. Raises AssertionError with the
+    worst pair; returns the rows' count and the worst differences."""
+    if got.shape != want.shape or not np.array_equal(got[:, :2], want[:, :2]):
+        raise AssertionError(f"{what}: rows differ: {got.shape} against {want.shape}")
+    box = score = 0.0
+    worst = None
+    for key in np.unique(want[:, :2], axis=0):
+        a = got[(got[:, :2] == key).all(1)]
+        b = want[(want[:, :2] == key).all(1)]
+        dist = (np.abs(a[:, None, 2:6] - b[None, :, 2:6]).max(-1)
+                + np.abs(a[:, None, 6] - b[None, :, 6]))
+        for _ in range(len(a)):
+            i, j = np.unravel_index(np.argmin(dist), dist.shape)
+            if dist[i, j] > box + score:
+                worst = (a[i].tolist(), b[j].tolist())
+            box = max(box, float(np.abs(a[i, 2:6] - b[j, 2:6]).max()))
+            score = max(score, float(abs(a[i, 6] - b[j, 6])))
+            dist[i, :], dist[:, j] = np.inf, np.inf
+    if box > atol_box or score > atol_score:
+        raise AssertionError(f"{what}: boxes {box} px, scores {score}; worst pair {worst}")
+    return {"rows": len(want), "box_px": box, "score": score}

@@ -1,1 +1,1 @@
-"""Host utilities: visualization, metrics, event files, detection configs."""
+"""Host utilities: visualization, metrics, event files, detector configs, timers."""

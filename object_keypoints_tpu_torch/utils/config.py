@@ -1,8 +1,8 @@
-"""Detection configs: the db defaults, their JSON merge and the --tiny overrides.
+"""Detector configs: SystemConfig, the db defaults, their JSON merge and the --tiny overrides.
 
-The port's copy of the detection part of
-``object_keypoints_tpu/utils/config.py`` (CornerNet-Lite's
-core/dbs/detection.py:5-70 defaults and core/base.py:27-31 JSON reader).
+The port's copy of ``object_keypoints_tpu/utils/config.py``
+(CornerNet-Lite's core/config.py:4-162 SystemConfig, core/dbs/
+detection.py:5-70 defaults and core/base.py:27-31 JSON reader).
 Model JSONs pair a "system" and a "db" section (``configs/*.json``, copied
 byte for byte from the JAX package). ``CONFIG_DIR`` holds them.
 """
@@ -10,11 +10,78 @@ byte for byte from the JAX package). ``CONFIG_DIR`` holds them.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 
 import numpy as np
 
 CONFIG_DIR = pathlib.Path(__file__).resolve().parents[1] / "configs"
+
+
+class SystemConfig:
+    """Training-system configuration (core/config.py:4-162): a dict of
+    defaults behind attribute access; ``update_config`` merges the known
+    keys of a config's "system" section."""
+
+    def __init__(self, **overrides):
+        self._configs = {
+            "dataset": None,
+            "sampling_function": "cornernet",
+            # training
+            "display": 5,
+            "snapshot": 400,
+            "stepsize": 5000,
+            "learning_rate": 0.001,
+            "decay_rate": 10,
+            "max_iter": 100000,
+            "val_iter": 20,
+            "batch_size": 1,
+            "snapshot_name": None,
+            "prefetch_size": 100,
+            "pretrain": None,
+            "opt_algo": "adam",
+            "chunk_sizes": None,
+            # directories
+            "data_dir": "./data",
+            "cache_dir": "./cache",
+            "config_dir": "./config",
+            "result_dir": "./results",
+            # splits
+            "train_split": "training",
+            "val_split": "validation",
+            "test_split": "testdev",
+            # rngs
+            "data_rng": np.random.RandomState(123),
+            "nnet_rng": np.random.RandomState(317),
+        }
+        self.update_config(overrides)
+
+    def __getattr__(self, name):
+        configs = object.__getattribute__(self, "_configs")
+        if name in configs:
+            return configs[name]
+        raise AttributeError(name)
+
+    @property
+    def full(self):
+        return self._configs
+
+    def update_config(self, new: dict):
+        for key, value in (new or {}).items():
+            if key in self._configs:
+                self._configs[key] = value
+        return self
+
+    @property
+    def snapshot_dir(self):
+        return os.path.join(self._configs["cache_dir"], "nnet",
+                            self._configs["snapshot_name"] or "model")
+
+    @property
+    def snapshot_file(self):
+        return os.path.join(self.snapshot_dir, (self._configs["snapshot_name"] or "model")
+                            + "_{}.ckpt")
+
 
 DETECTION_DEFAULTS = {
     # training (core/dbs/detection.py:9-62)

@@ -333,6 +333,25 @@ def test_tiny_detector_equals_jax(name):
         np.testing.assert_allclose(got[key][:, 4], want[key][:, 4], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_detector_frames_are_contiguous_nchw(dtype):
+    """The stem kernel takes contiguous NCHW frames only. A float32 batch of
+    one frame (``scale_batch`` adds its batch axis with stride 0) came back
+    from ``Detector.frames`` as a channels-last view, which the card's stem
+    refused."""
+    model = cornernet.tiny_cornernet("CornerNet_Squeeze")
+    det = detector.Detector(model, config.DetectionConfig(config.tiny_db_overrides("CornerNet")),
+                            device="cpu", dtype=dtype)
+    image = np.random.default_rng(0).integers(0, 256, (96, 120, 3), dtype=np.uint8)
+    batch, _ = detector.scale_batch(dict(det.config.configs, test_flipped=False), image, 1)
+    assert batch.shape[0] == 1
+    for frames in (det.frames(batch), det.frames(np.concatenate([batch, batch]))):
+        assert frames.dtype == dtype and frames.is_contiguous()
+        np.testing.assert_array_equal(
+            frames.float().numpy(), torch.from_numpy(batch).to(dtype).float().permute(0, 3, 1, 2)
+            .expand(len(frames), -1, -1, -1).numpy())
+
+
 def test_detector_asks_for_cuda_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = cornernet.tiny_cornernet("CornerNet")
@@ -369,7 +388,22 @@ def test_detect_cli_at_full_width_on_the_cpu(tmp_path, capsys):
 
 
 def test_detect_cli_refuses_what_it_cannot_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="Saccade"):
-        detect_cli.main([str(tmp_path / "img.png"), "--arch", "CornerNet_Saccade", "--random"])
     with pytest.raises(SystemExit, match="--snapshot"):
         detect_cli.main([str(tmp_path / "img.png"), "--cpu"])
+    with pytest.raises(SystemExit, match="--snapshot"):
+        detect_cli.main([str(tmp_path / "img.png"), "--arch", "CornerNet_Saccade", "--cpu"])
+
+
+def test_detect_cli_runs_saccade_at_full_width_on_the_cpu(tmp_path, capsys):
+    """CornerNet-Saccade (116,969,339 parameters) through its two-stage
+    inference on a 100x100 image: stage 1's two views of 255x255."""
+    image = np.random.default_rng(0).integers(0, 256, (100, 100, 3), dtype=np.uint8)
+    cv2.imwrite(str(tmp_path / "img.png"), image)
+    out = tmp_path / "det.jpg"
+    named = detect_cli.main([str(tmp_path / "img.png"), "--arch", "CornerNet_Saccade",
+                             "--random", "--cpu", "--out", str(out)])
+    assert out.exists() and cv2.imread(str(out)).shape == (100, 100, 3)
+    assert capsys.readouterr().out.strip().endswith(f"-> {out}")
+    assert sorted(named, key=int) == [str(i) for i in range(1, 81)]
+    for boxes in named.values():
+        assert boxes.shape[1] == 5 and np.isfinite(boxes).all()

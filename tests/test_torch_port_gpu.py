@@ -866,22 +866,13 @@ def _tiny_detector(device, seed=2, categories=4):
     corners of one class: tests/test_torch_port_detector.py's recipe."""
     from object_keypoints_tpu_torch.inference.detector import Detector
     from object_keypoints_tpu_torch.models.cornernet import tiny_cornernet
+    from object_keypoints_tpu_torch.testing import plant_detector_heads, randomize_batchnorm
     from object_keypoints_tpu_torch.utils.config import DetectionConfig, tiny_db_overrides
 
     model = tiny_cornernet("CornerNet_Squeeze", categories,
                            generator=torch.Generator().manual_seed(seed))
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.5, generator=g)
-                m.bias.normal_(0, 0.1, generator=g)
-                m.running_mean.normal_(0, 0.1, generator=g)
-                m.running_var.uniform_(0.5, 1.5, generator=g)
-        for heads in (model.tl_heats, model.br_heats):
-            conv = heads[0][1]
-            conv.weight.copy_(conv.weight[:1].expand_as(conv.weight) * -30.0)
-            conv.bias.copy_(-2.19 + 0.01 * torch.arange(categories, dtype=torch.float32))
+    randomize_batchnorm(model, torch.Generator().manual_seed(seed))
+    plant_detector_heads(model, -30.0)
     db = {**tiny_db_overrides("CornerNet"), "categories": categories, "top_k": 12,
           "num_dets": 40, "max_per_image": 100, "ae_threshold": 100.0,
           "test_scales": [0.75, 1], "merge_bbox": True}
@@ -897,3 +888,105 @@ def test_tiny_detector_on_card_matches_cpu(cuda):
         assert got.shape == want.shape, key
         numpy.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0, atol=1e-3)
         numpy.testing.assert_allclose(got[:, 4], want[:, 4], rtol=0, atol=1e-5)
+
+
+# --- CornerNet-Saccade and the detector eval --------------------------------
+
+def test_crop_zoom_batch_on_card_matches_cpu(cuda):
+    """The saccade's batched crop-zoom at its full-width shapes (a 480x640
+    frame into 32 canvases of 255x255: windows inside, past every border,
+    one pixel high, and the driver's pad rows) on the card against the CPU,
+    within 1e-5: the same float32 ops, one rounding each."""
+    from object_keypoints_tpu_torch.inference.saccade import crop_zoom_batch
+
+    rng = numpy.random.default_rng(0)
+    image = torch.from_numpy(rng.uniform(-2.2, 2.7, (480, 640, 3)).astype(numpy.float32))
+    centers = rng.uniform(-20, [500, 660], (32, 2)).astype(numpy.float32)
+    sizes = numpy.floor(255 / rng.uniform(0.2, 4.0, (32, 1))).repeat(2, 1).astype(numpy.float32)
+    centers[:4], sizes[:4] = [[0, 300], [479, 10], [240, 0], [1, 1]], [[1, 40], [1, 1], [64, 1],
+                                                                     [255, 255]]
+    sizes[4] = [2000, 2000]  # past every border
+    args = [torch.from_numpy(a) for a in (centers, sizes)]
+    card = crop_zoom_batch(image.to(cuda), *(a.to(cuda) for a in args), (255, 255))
+    cpu = crop_zoom_batch(image, *args, (255, 255))
+    torch.cuda.synchronize()
+    assert card[0].shape == (32, 255, 255, 3) and card[0].device.type == cuda.type
+    torch.testing.assert_close(card[0].cpu(), cpu[0], atol=1e-5, rtol=0)
+    assert torch.equal(card[1].cpu(), cpu[1])
+
+
+def _tiny_saccade(device, seed=0, categories=4):
+    """A tiny CornerNet-Saccade SaccadeDetector in float32, BatchNorm at
+    random, heat heads shared across classes (x -3) and attention kernels
+    x 4, so that stage 2 runs a bucket of crops and corners pair."""
+    from object_keypoints_tpu_torch.inference.saccade import SaccadeDetector
+    from object_keypoints_tpu_torch.models.cornernet import tiny_cornernet
+    from object_keypoints_tpu_torch.testing import plant_detector_heads, randomize_batchnorm
+    from object_keypoints_tpu_torch.utils.config import (
+        CONFIG_DIR,
+        DetectionConfig,
+        load_cfg,
+        tiny_db_overrides,
+    )
+
+    model = tiny_cornernet("CornerNet_Saccade", categories,
+                           generator=torch.Generator().manual_seed(seed))
+    randomize_batchnorm(model, torch.Generator().manual_seed(seed))
+    plant_detector_heads(model, -3.0, att_gain=4.0)
+    db = {**load_cfg(CONFIG_DIR / "CornerNet_Saccade.json")[1],
+          **tiny_db_overrides("CornerNet_Saccade"), "categories": categories,
+          "ae_threshold": 100.0, "top_k": 12, "num_dets": 40, "max_per_image": 100,
+          "att_max_crops": 12}
+    return SaccadeDetector(model, DetectionConfig(db), device=device, dtype=torch.float32)
+
+
+def test_tiny_saccade_on_card_matches_cpu(cuda):
+    """The two-stage drive on the card against the CPU on the same image:
+    the same stages and crops, equal counts per class, boxes within 1e-3 px
+    and scores within 1e-5."""
+    image = numpy.random.default_rng(0).integers(0, 256, (96, 128, 3), dtype=numpy.uint8)
+    card_stats, cpu_stats = [], []
+    card = _tiny_saccade(cuda)(image, stats=card_stats)
+    cpu = _tiny_saccade("cpu")(image, stats=cpu_stats)
+    assert [s.get("crops") for s in card_stats] == [s.get("crops") for s in cpu_stats]
+    assert cpu_stats[1]["crops"] > 1 and sum(len(v) for v in cpu.values()) > 10
+    for key, want in cpu.items():
+        got = card[key]
+        assert got.shape == want.shape, key
+        numpy.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0, atol=1e-3)
+        numpy.testing.assert_allclose(got[:, 4], want[:, 4], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["CornerNet_Squeeze", "CornerNet_Saccade"])
+def test_tiny_eval_cli_on_card_matches_cpu(cuda, tmp_path, arch, capsys):
+    """cli.evaluate_detector --tiny over four synthetic 192x256 COCO images,
+    on the card and with --cpu, from one planted .pth snapshot: the 12
+    stats within 1e-3; results.json rows as sets: equal counts per image
+    and class, boxes within 1e-3 px and scores within 1e-5."""
+    from object_keypoints_tpu_torch.cli import evaluate_detector
+    from object_keypoints_tpu_torch.data.synthetic import make_synthetic_coco_dataset
+    from object_keypoints_tpu_torch.models.cornernet import tiny_cornernet
+    from object_keypoints_tpu_torch.testing import (
+        coco_rows,
+        compare_coco_rows,
+        plant_detector_heads,
+        randomize_batchnorm,
+    )
+
+    ann, images = make_synthetic_coco_dataset(str(tmp_path / "data"), n_images=4,
+                                              image_size=(192, 256), seed=0)
+    model = tiny_cornernet(arch, 80, generator=torch.Generator().manual_seed(1))
+    randomize_batchnorm(model, torch.Generator().manual_seed(1))
+    saccade = arch == "CornerNet_Saccade"
+    plant_detector_heads(model, -3.0 if saccade else 3.0, att_gain=4.0 if saccade else None)
+    torch.save(model.state_dict(), tmp_path / f"{arch}_1.pth")
+    argv = [arch, "--annotations", ann, "--image-dir", images, "--tiny",
+            "--snapshot-dir", str(tmp_path), "--testiter", "1"]
+    card = evaluate_detector.main([*argv, "--result-dir", str(tmp_path / "card")])
+    cpu = evaluate_detector.main([*argv, "--cpu", "--result-dir", str(tmp_path / "cpu")])
+    capsys.readouterr()
+    numpy.testing.assert_allclose(card["stats"], cpu["stats"], rtol=0, atol=1e-3)
+    want = coco_rows(tmp_path / "cpu" / "1" / "validation" / "results.json")
+    assert len(want) > 0
+    compare_coco_rows(f"{arch} --tiny eval: card vs CPU",
+                      coco_rows(tmp_path / "card" / "1" / "validation" / "results.json"), want)
