@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train, int8, detectors, detector eval.
+"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train, int8, the detectors.
 
     python3 chip_smoke.py
 
@@ -168,6 +168,30 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    the card's own heads, image by image, with the same tolerances; the 12
    stats of every pair within 1e-3. Prints each eval's images/s and its
    COCOeval seconds on both devices.
+14. CornerNet detector training. (a) ``training.detection`` train steps at
+   full width in bf16 over float32 parameters, seeded weights, Adam, on
+   batches of ``cli.train_detector.batch_stream`` over 64 synthetic 480x640
+   COCO images (seed 0, 80 classes), each detector at its config's input:
+   CornerNet-Squeeze at (55, 511, 511), CornerNet-Saccade at (48, 255, 255)
+   through ``saccade_sample``, CornerNet at (CORNERNET_TRAIN_BATCH, 511, 511)
+   after a few steps at its 5-image chunk (peak memory at each; the chosen
+   batch must stay under 70 GB). Per model: ms a step by CUDA events and by
+   host clock over 10 warm steps on one device-resident batch, images/s,
+   device ops and busy share of one traced step, peak memory, host syncs in
+   a warm step (``set_sync_debug_mode("warn")``: none allowed), the losses
+   (finite, falling on the fixed batch), one worker's host ms to build a
+   batch, then ``train_detector`` through the stream with the CLI's 2
+   workers and ``device_prefetch``: its ms an iteration. (b) one float32
+   step (TF32 off) of CornerNet-Squeeze at batch 2, card against CPU from
+   the same weights and batch: loss rel 1e-4, the whole gradient within
+   1e-2 of its norm (each tensor's share printed), each running statistic
+   within 1e-3 of its tensor's largest. (c) the JAX package's learning gate
+   (tests/test_detection_training.py:660-719) on the port's CLIs on the
+   card: ``cli.train_detector CornerNet_Squeeze --tiny --batch-size 8
+   --max-iter 800 --lr 2.5e-3`` over 64 synthetic 64x64 COCO images, then
+   ``cli.evaluate_detector --tiny --testiter 800``: mAP > 0.3, printed with
+   AP50 beside the JAX package's CPU figure; then the tiny CornerNet-Saccade
+   for 100 iterations, whose loss must fall.
 
 The process's TF32 flags stay at torch's defaults: the port's entry points
 (``infer``, the train and eval steps) pin TF32 off themselves; phases 3 and
@@ -178,8 +202,9 @@ are the kernels' JSON and ``{"ok": true, "device": {...}}``. The stem
 wrapper counts launches in all and per kernel; phases 4, 5, 6, 8, 9 (its
 eval_steps), 10 (the loop's runs and the packaged models' serves), 11
 (the int8 serve steps and the int8 artifact's serve), 12 (the detectors'
-calls) and 13 (the saccade's calls, the eval CLI's runs on the card)
-each set the counts to 0 before they run and read them after, and
+calls), 13 (the saccade's calls, the eval CLI's runs on the card) and 14
+(the eval CLI's run of the trained tiny detector; the train-mode stem runs
+on cuDNN) each set the counts to 0 before they run and read them after, and
 the kernels' line gives each kernel's launches from those runs. The int8 convolutions run on cuBLASLt's
 int8 GEMM, not on a kernel of this repository, so they are not in that line;
 phase 11 counts their launches apart.
@@ -187,6 +212,7 @@ phase 11 counts their launches apart.
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -2125,6 +2151,287 @@ def phase_detector_eval(card):
     return {k: sum(c[k] for c in launches) for k in launches[0]}
 
 
+DET_TRAIN_IMAGES = 64  # synthetic COCO images of DETECT_IMAGE (COCO's typical size), seed 0
+# each detector at its config's input and batch_size; CornerNet's 49 stays under
+# DET_TRAIN_MEMORY_CAP on the card (phase 14 prints its peak at its 5-image chunk and at 49)
+CORNERNET_TRAIN_BATCH = 49
+CORNERNET_CHUNK = 5  # the reference's per-GPU chunk (chunk_sizes), measured first
+DET_TRAIN_BATCHES = {"CornerNet_Squeeze": 55, "CornerNet_Saccade": 48,
+                     "CornerNet": CORNERNET_TRAIN_BATCH}
+DET_TRAIN_MEMORY_CAP = 70e9  # bytes the chosen CornerNet batch must stay under
+DET_TRAIN_WARM, DET_TRAIN_TIMED = 2, 10
+DET_LOOP_ITERS = 5  # train_detector iterations through the batch stream
+TINY_ITERS, TINY_SACCADE_ITERS = 800, 100
+TINY_IMAGES = 64  # the JAX gate's synthetic 64x64 COCO set
+TINY_JAX_CPU = {"mAP": 0.79, "AP50": 0.95}  # tests/test_detection_training.py:660-669
+
+
+def detector_train_setup(arch):
+    """(system config, db config, model, compute dtype) as the train CLI
+    builds them for ``arch``: the full-width model from seeded weights,
+    bf16 over float32 parameters."""
+    from object_keypoints_tpu_torch.cli.train_detector import build_model
+    from object_keypoints_tpu_torch.utils.config import (
+        CONFIG_DIR,
+        DetectionConfig,
+        SystemConfig,
+        load_cfg,
+    )
+
+    sys_cfg, db_cfg = load_cfg(CONFIG_DIR / f"{arch}.json")
+    system_config = SystemConfig(snapshot_name=arch).update_config(sys_cfg)
+    db_config = DetectionConfig(db_cfg)
+    model, dtype = build_model(arch, db_config["categories"], tiny=False)
+    return system_config, db_config, model, dtype
+
+
+def host_batch(dataset, db_config, batch, saccade, workers=1):
+    """One batch from the train CLI's batch stream and its host ms (one
+    worker: the ms one thread takes to build it)."""
+    from object_keypoints_tpu_torch.cli.train_detector import batch_stream
+
+    stream = batch_stream(dataset, db_config, batch, workers, saccade=saccade)
+    t0 = time.perf_counter()
+    out = next(stream)
+    ms = 1e3 * (time.perf_counter() - t0)
+    stream.close()
+    return out, ms
+
+
+def timed_train_steps(step, warm, timed):
+    """``warm`` then ``timed`` steps; (the losses as a host list, ms a step
+    by CUDA events and by host clock over the timed ones)."""
+    losses = [step()["loss"] for _ in range(warm)]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses += [step()["loss"] for _ in range(timed)]
+    end.record()
+    torch.cuda.synchronize()
+    return (torch.stack(losses).cpu().tolist(), start.elapsed_time(end) / timed,
+            1e3 * (time.perf_counter() - t0) / timed)
+
+
+def warm_step_syncs(step):
+    """Host syncs in one warm step, from set_sync_debug_mode("warn")."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [sync_site(w) for w in caught if is_sync(w)]
+
+
+def detector_train_run(arch, dataset, card):
+    """Full-width bf16 train steps of ``arch`` at its batch on a fixed
+    device-resident batch from the batch stream, then train_detector
+    through the batch stream with the CLI's 2 workers."""
+    from object_keypoints_tpu_torch.cli.train_detector import batch_stream
+    from object_keypoints_tpu_torch.data.prefetch import device_prefetch
+    from object_keypoints_tpu_torch.training import detection
+
+    system_config, db_config, model, dtype = detector_train_setup(arch)
+    saccade = arch == "CornerNet_Saccade"
+    step_fn = detection.saccade_train_step if saccade else detection.detection_train_step
+    n_params = sum(p.numel() for p in model.parameters())
+    state = detection.create_train_state(model, detection.make_detection_optimizer(system_config),
+                                         dtype, "cuda")
+    fields = dict(arch=arch, params=n_params, dtype="bfloat16",
+                  input=list(db_config["input_size"]), output=list(db_config["output_sizes"][0]))
+    batch_size = DET_TRAIN_BATCHES[arch]
+    if arch == "CornerNet":  # its reference chunk first: the peak it sets per image
+        chunk, _ = host_batch(dataset, db_config, CORNERNET_CHUNK, saccade)
+        chunk = detection.to_device(chunk, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed_train_steps(lambda: step_fn(state, chunk)[1], 1, 2)
+        fields["chunk"] = dict(batch=CORNERNET_CHUNK,
+                               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del chunk
+    batch, build_ms = host_batch(dataset, db_config, batch_size, saccade)
+    fixed = detection.to_device(batch, "cuda")
+    assert fixed["images"].shape == (batch_size, *db_config["input_size"], 3)
+    del batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = lambda: step_fn(state, fixed)[1]  # noqa: E731
+    losses, cuda_ms, host_ms_ = timed_train_steps(step, DET_TRAIN_WARM, DET_TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all(), losses
+    assert losses[-1] < losses[0], ("the loss does not fall on a fixed batch", losses)
+    if arch == "CornerNet":
+        assert peak < DET_TRAIN_MEMORY_CAP, (peak, CORNERNET_TRAIN_BATCH)
+    syncs = warm_step_syncs(step)
+    assert not syncs, ("a warm train step waited for the card", syncs)
+    busy, ops, wall = traced_busy_share(step)
+    del fixed
+
+    # the loop: train_detector through the batch stream (2 workers) and
+    # device_prefetch, as the train CLI runs it; the time of each batch's
+    # request marks the iterations
+    marks = []
+
+    def marked(batches):
+        for b in batches:
+            marks.append(time.perf_counter())
+            yield b
+
+    stream = batch_stream(dataset, db_config, batch_size, 2, saccade=saccade)
+    batches = device_prefetch(stream, "cuda")
+    system_config.update_config({"max_iter": DET_LOOP_ITERS, "display": DET_LOOP_ITERS,
+                                 "snapshot": 10**9})
+    messages = []
+    t0 = time.perf_counter()
+    detection.train_detector(state.model, system_config, marked(batches),
+                             on_display=messages.append, train_step_fn=step_fn, dtype=dtype)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    batches.close()
+    loop_ms = 1e3 * (t_end - marks[1]) / (DET_LOOP_ITERS - 1)
+    assert len(messages) == 1 and np.isfinite(float(messages[0].split("loss ")[1])), messages
+    fields.update(
+        batch=batch_size, step_ms_cuda_events=cuda_ms, step_ms_host=host_ms_,
+        images_per_sec=1e3 * batch_size / host_ms_, peak_mem_gb=peak / 1e9,
+        traced_step=dict(device_busy_share=busy, device_ops=ops, wall_ms=wall),
+        warm_step_host_syncs=len(syncs), losses_fixed_batch=losses,
+        host_batch_ms_one_worker=build_ms,
+        loop=dict(iterations=DET_LOOP_ITERS, workers=2, ms_per_iteration=loop_ms,
+                  first_batch_s=marks[0] - t0, images_per_sec=1e3 * batch_size / loop_ms,
+                  message=messages[0]),
+        card=card)
+    log("detector_train", **fields)
+    del state, model
+    torch.cuda.empty_cache()
+    return fields
+
+
+def detector_step_card_vs_cpu(dataset, card):
+    """One float32 step (TF32 off) of full-width CornerNet-Squeeze at batch
+    2 on the card and on the CPU from the same weights and batch."""
+    from object_keypoints_tpu_torch.training import detection
+
+    system_config, db_config, init, _ = detector_train_setup("CornerNet_Squeeze")
+    batch, _ = host_batch(dataset, db_config, 2, False)
+    sides = []
+    for device in ("cuda", "cpu"):
+        model = copy.deepcopy(init)
+        state = detection.create_train_state(
+            model, detection.make_detection_optimizer(system_config), torch.float32, device)
+        t0 = time.perf_counter()
+        loss, grads = detection.loss_and_grads(state, batch)
+        state.tx.step(state.params, grads, state.opt_state)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        sides.append((loss.item(), [g.double().cpu() for g in grads],
+                      {k: v.double().cpu() for k, v in model.state_dict().items()
+                       if "running" in k}, seconds))
+        del state, model, grads
+    (card_loss, card_g, card_stats, card_s), (cpu_loss, cpu_g, cpu_stats, cpu_s) = sides
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    whole = (sum((g - w).square().sum() for g, w in zip(card_g, cpu_g))
+             / sum(w.square().sum() for w in cpu_g)).sqrt().item()
+    per_tensor = [((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+                  for g, w in zip(card_g, cpu_g)]
+    stats_rel = max(((card_stats[k] - cpu_stats[k]).abs().max()
+                     / cpu_stats[k].abs().max()).item() for k in cpu_stats)
+    fields = dict(arch="CornerNet_Squeeze", batch=2, dtype="float32", loss_card=card_loss,
+                  loss_cpu=cpu_loss, loss_rel=loss_rel, grad_rel_of_norm=whole,
+                  grad_worst_tensor_rel_of_its_norm=max(per_tensor),
+                  grad_median_tensor_rel_of_its_norm=statistics.median(per_tensor),
+                  running_stats_rel=stats_rel, card_step_s=card_s, cpu_step_s=cpu_s,
+                  tolerance="loss rel 1e-4; the whole gradient within 1e-2 of its norm; each "
+                            "running statistic within 1e-3 of its tensor's largest",
+                  card=card)
+    log("detector_train_card_vs_cpu", **fields)
+    assert loss_rel <= 1e-4 and whole <= 1e-2 and stats_rel <= 1e-3, fields
+    return fields
+
+
+def display_losses(text):
+    return [float(line.split("loss ")[1]) for line in text.splitlines()
+            if line.startswith("iter ") and ": loss " in line]
+
+
+def detector_learns(tmp, card):
+    """The JAX package's learning gate on the port's CLIs, on the card:
+    train_detector CornerNet_Squeeze --tiny (batch 8, 800 iterations, lr
+    2.5e-3) over 64 synthetic 64x64 COCO images, then evaluate_detector
+    --tiny on them: mAP > 0.3. Then the tiny CornerNet-Saccade, 100
+    iterations: its loss falls. Returns the eval's stem launches."""
+    import io
+
+    from object_keypoints_tpu_torch.cli import evaluate_detector, train_detector
+    from object_keypoints_tpu_torch.data.synthetic import make_synthetic_coco_dataset
+
+    ann, images = make_synthetic_coco_dataset(os.path.join(tmp, "tiny"), n_images=TINY_IMAGES,
+                                              image_size=(64, 64), seed=SEED)
+    snaps = os.path.join(tmp, "nnet")
+    runs = {}
+    for arch, iters in (("CornerNet_Squeeze", TINY_ITERS), ("CornerNet_Saccade", TINY_SACCADE_ITERS)):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            state = train_detector.main([arch, "--annotations", ann, "--images", images, "--tiny",
+                                         "--batch-size", "8", "--max-iter", str(iters), "--lr",
+                                         "2.5e-3", "--snapshot-every", str(iters),
+                                         "--snapshot-dir", snaps])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert state.device.type == "cuda" and state.step == iters
+        assert os.path.exists(os.path.join(snaps, f"{arch}_{iters}.pth"))
+        losses = display_losses(out.getvalue())
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], (arch, losses)
+        runs[arch] = dict(iterations=iters, wall_s=wall, ms_per_iteration=1e3 * wall / iters,
+                          first_display_loss=losses[0], last_display_loss=losses[-1])
+    out = io.StringIO()
+    reset_stem_counts()  # the eval of the trained detector is a main path
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = evaluate_detector.main(["CornerNet_Squeeze", "--annotations", ann, "--image-dir",
+                                         images, "--tiny", "--testiter", str(TINY_ITERS),
+                                         "--snapshot-dir", snaps, "--result-dir",
+                                         os.path.join(tmp, "results")])
+    torch.cuda.synchronize()
+    launches = stem_counts()
+    eval_s = time.perf_counter() - t0
+    assert f"loading parameters at iteration: {TINY_ITERS}" in out.getvalue()
+    assert launches["stem_conv_fp32"] == TINY_IMAGES and launches["stem_conv_bf16"] == 0, launches
+    fields = dict(train=runs, mAP=result["mAP"], AP50=result["stats"][1], eval_s=eval_s,
+                  images=TINY_IMAGES, jax_cpu_reference=TINY_JAX_CPU, gate="mAP > 0.3",
+                  eval_stem_launches=launches, card=card)
+    log("detector_learns", **fields)
+    assert result["mAP"] > 0.3, fields
+    return launches
+
+
+def phase_detector_train(card):
+    """CornerNet detector training on the card: (a) full-width bf16 train
+    steps of CornerNet-Squeeze, CornerNet-Saccade and CornerNet at their
+    configs' inputs and batches (CornerNet's cut to fit) on batches of the
+    train CLI's stream over synthetic 480x640 COCO images, then the loop;
+    (b) one float32 step of CornerNet-Squeeze, card against CPU; (c) the
+    tiny detector trained and evaluated by the port's CLIs, mAP > 0.3."""
+    from object_keypoints_tpu_torch.data.coco import CocoDetectionDataset
+    from object_keypoints_tpu_torch.data.synthetic import make_synthetic_coco_dataset
+
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ann, images = make_synthetic_coco_dataset(os.path.join(tmp, "coco"),
+                                                  n_images=DET_TRAIN_IMAGES,
+                                                  image_size=DETECT_IMAGE, seed=SEED)
+        dataset = CocoDetectionDataset(ann, images)
+        for arch in ("CornerNet_Squeeze", "CornerNet_Saccade", "CornerNet"):
+            detector_train_run(arch, dataset, card)
+        detector_step_card_vs_cpu(dataset, card)
+        launches = detector_learns(tmp, card)
+    log("detector_train_phase", phase_s=time.perf_counter() - phase_t0)
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2139,6 +2446,7 @@ def main():
     paths.append(phase_detector(card))
     paths.append(phase_saccade(card))
     paths.append(phase_detector_eval(card))
+    paths.append(phase_detector_train(card))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

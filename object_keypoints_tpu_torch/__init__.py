@@ -4,9 +4,9 @@ The JAX package ``object_keypoints_tpu`` is the reference; this package
 reproduces its two KeypointNet serve paths (depth head and
 stereo-triangulated) in float and int8, its evaluation path, its training
 (the step, the loop, checkpoints and the CLIs), the CornerNet detectors'
-serve path (CornerNet-Saccade's two stages included) and the detector eval
-on an NVIDIA H100 and keeps its module names, so each
-module here has a counterpart of the same name there:
+serve path (CornerNet-Saccade's two stages included), the detector eval
+and the detectors' training on an NVIDIA H100 and keeps its module names,
+so each module here has a counterpart of the same name there:
 
 models      blocks, fire and residual hourglasses, KeypointNet, cornernet (NCHW)
 ops         stem_conv (CUDA kernel + plain version), int8_conv (int8 x int8
@@ -25,17 +25,19 @@ serving     export (artifacts both ways, inference fn), weights (JAX <-> port),
 data        scene (SceneDataset), targets (batched target rendering),
             augment, augment_device (batched, on the card), encode
             (SequenceWriter), synthetic sequences and COCO set, combinators,
-            prefetch, coco (CocoDetectionDataset, COCOeval)
+            prefetch, coco (CocoDetectionDataset, COCOeval), detection_targets
+            and detection_augment (the detector trainer's host sampler)
 vendor      cocotools: COCOeval in numpy
-training    losses, trainer (AdamW + plateau, train and eval steps),
-            device_data (the dataset on the card, train_step_device_data),
-            checkpoints (best and last, the port's own files), loop
-            (TrainConfig, train, fit)
+training    losses (keypoint, CornerNet), trainer (AdamW + plateau, train and
+            eval steps), device_data (the dataset on the card,
+            train_step_device_data), checkpoints (best and last, the port's
+            own files), loop (TrainConfig, train, fit), detection (the
+            detectors' optimizer, train steps and iteration loop)
 precision   no_tf32: float32 means float32 at every entry point
 evaluation  Sequence, Results, batched and per-frame sequence evaluation
-cli         eval_model, train, package_model, detect, evaluate_detector (the
-            CLIs of scripts/), and flagship (scripts/flagship_recipe.sh's data,
-            training and eval)
+cli         eval_model, train, package_model, detect, train_detector,
+            evaluate_detector (the CLIs of scripts/), and flagship
+            (scripts/flagship_recipe.sh's data, training and eval)
 utils       vis: boxes, heatmap overlays, live viewer; metrics (MetricsLogger),
             tb_events (TensorBoard event files), config (detector configs),
             progress (Timer)

@@ -7,8 +7,9 @@ next host batches, puts them in pinned memory and copies them with
 ``non_blocking`` copies on a side CUDA stream, recording an event after
 each batch; the consumer's stream waits on that event before the batch is
 used, so the copies overlap the step that runs. On the CPU it converts each
-batch where it is. The JAX ``sharding`` argument has no counterpart until
-the port trains on several devices.
+batch where it is. A value may be a tuple of arrays (the detection batches'
+attention maps), which comes out a tuple of tensors. The JAX ``sharding``
+argument has no counterpart until the port trains on several devices.
 """
 
 from __future__ import annotations
@@ -22,8 +23,12 @@ import torch
 _SENTINEL = object()
 
 
-def _pinned(x) -> torch.Tensor:
-    return torch.as_tensor(x).pin_memory()
+def _each(fn, v):
+    return tuple(fn(a) for a in v) if isinstance(v, (tuple, list)) else fn(v)
+
+
+def _pinned_to(device):
+    return lambda x: torch.as_tensor(x).pin_memory().to(device, non_blocking=True)
 
 
 def device_prefetch(batches: Iterable[dict], device="cuda", buffer_size: int = 2
@@ -34,7 +39,7 @@ def device_prefetch(batches: Iterable[dict], device="cuda", buffer_size: int = 2
     device = torch.device(device)
     if device.type != "cuda":
         for batch in batches:
-            yield {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+            yield {k: _each(lambda x: torch.as_tensor(x).to(device), v) for k, v in batch.items()}
         return
 
     q: "queue.Queue" = queue.Queue(maxsize=buffer_size)
@@ -46,7 +51,7 @@ def device_prefetch(batches: Iterable[dict], device="cuda", buffer_size: int = 2
         try:
             with torch.cuda.stream(stream):
                 for batch in batches:
-                    out = {k: _pinned(v).to(device, non_blocking=True) for k, v in batch.items()}
+                    out = {k: _each(_pinned_to(device), v) for k, v in batch.items()}
                     ready = torch.cuda.Event()
                     ready.record(stream)
                     while not stop.is_set():
@@ -74,8 +79,8 @@ def device_prefetch(batches: Iterable[dict], device="cuda", buffer_size: int = 2
             out, ready = item
             consumer = torch.cuda.current_stream(device)
             consumer.wait_event(ready)
-            for t in out.values():
-                t.record_stream(consumer)  # the side stream allocated it
+            for v in out.values():
+                _each(lambda t: t.record_stream(consumer), v)  # the side stream allocated it
             yield out
     finally:
         stop.set()

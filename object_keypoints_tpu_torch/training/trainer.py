@@ -212,8 +212,15 @@ def create_train_state(model: torch.nn.Module, tx: AdamWPlateau, dtype=torch.flo
                       dtype=dtype)
 
 
-def _on(device, batch: dict) -> dict:
-    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+def to_device(batch: dict, device) -> dict:
+    """A batch's arrays as tensors on ``device``; a tuple of arrays (the
+    detection batches' attention maps) becomes a tuple of tensors."""
+
+    def on(v):
+        return torch.as_tensor(v).to(device, non_blocking=True)
+
+    return {k: tuple(on(a) for a in v) if isinstance(v, (tuple, list)) else on(v)
+            for k, v in batch.items()}
 
 
 def loss_and_metrics(model, batch: dict, train: bool, dtype=torch.float32,
@@ -247,7 +254,7 @@ def loss_and_grads(state: TrainState, batch: dict, generator: Optional[torch.Gen
     gradients of ``state.params``); the BatchNorm running statistics are
     updated. ``metrics["grad_norm"]`` is the global norm of the raw
     gradients."""
-    batch = _on(state.device, batch)
+    batch = to_device(batch, state.device)
     params = state.params
     with no_tf32():
         loss, metrics, _ = loss_and_metrics(state.model, batch, True, state.dtype, generator,
@@ -278,7 +285,7 @@ def eval_step(state: TrainState, batch: dict, depth_weight: float = 10.0,
     card): ``val_loss``, the mean |sigmoid(last-stack heatmap) - target|;
     ``total_heatmap_loss``, the loss; and ``val_<name>`` for each per-stack
     loss."""
-    batch = _on(state.device, batch)
+    batch = to_device(batch, state.device)
     with torch.no_grad(), no_tf32():
         _, metrics, outs = loss_and_metrics(state.model, batch, False, state.dtype, None,
                                             depth_weight, center_weight)

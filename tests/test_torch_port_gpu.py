@@ -990,3 +990,125 @@ def test_tiny_eval_cli_on_card_matches_cpu(cuda, tmp_path, arch, capsys):
     assert len(want) > 0
     compare_coco_rows(f"{arch} --tiny eval: card vs CPU",
                       coco_rows(tmp_path / "card" / "1" / "validation" / "results.json"), want)
+
+
+# --- CornerNet detector training: the pools' backward, the step, the CLIs ----
+
+
+def _tie_map(seed, shape=(2, 8, 33, 46)):
+    rng = numpy.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, 4, size=shape).astype(numpy.float32))
+    ct = torch.from_numpy(rng.integers(-3, 4, size=shape).astype(numpy.float32))
+    return x.bfloat16(), ct.bfloat16()
+
+
+@pytest.mark.parametrize("name", ["top_pool", "bottom_pool", "left_pool", "right_pool"])
+def test_corner_pool_bf16_gradient_on_card_equals_cpu(cuda, name):
+    """bf16 channels_last maps full of ties: the card's backward (JAX's
+    associative-scan gradient over torch.maximum) equals the CPU's exactly;
+    the integer cotangents make every sum exact."""
+    from object_keypoints_tpu_torch.ops import corner_pool
+
+    x, ct = _tie_map(3)
+    grads = []
+    for device, layout in ((cuda, torch.channels_last), ("cpu", torch.contiguous_format)):
+        xd = x.to(device, memory_format=layout).requires_grad_()
+        (getattr(corner_pool, name)(xd) * ct.to(device)).sum().backward()
+        assert xd.grad.dtype == torch.bfloat16
+        grads.append(xd.grad.cpu())
+    assert torch.equal(grads[0], grads[1]), name
+
+
+def _tiny_detection_batch(seed, n=4):
+    from object_keypoints_tpu_torch.data.detection_targets import render_corner_targets
+
+    rng = numpy.random.default_rng(seed)
+    ts = []
+    for _ in range(n):
+        x0, y0 = rng.uniform(0, 40, 2)
+        w, h = rng.uniform(8, 20, 2)
+        dets = numpy.array([[x0, y0, x0 + w, y0 + h, 1 + rng.integers(3)]], numpy.float32)
+        ts.append(render_corner_targets(dets, 80, (64, 64), (16, 16), gaussian_iou=0.3))
+    batch = {k: numpy.stack([t[k] for t in ts]) for k in ts[0]}
+    batch["images"] = rng.normal(size=(n, 64, 64, 3)).astype(numpy.float32)
+    return batch
+
+
+def test_tiny_detection_train_step_on_card_matches_cpu(cuda):
+    """One float32 step (TF32 off) of the --tiny CornerNet-Squeeze from the
+    same weights and batch: the loss within rel 1e-5, the parameters where
+    the CPU's |g| is above a fifth of its tensor's largest within 1e-6
+    (Adam's first step is lr * sign(g) there), the running statistics within
+    rel 1e-3."""
+    import copy
+
+    from object_keypoints_tpu_torch.models.cornernet import tiny_cornernet
+    from object_keypoints_tpu_torch.training import detection
+    from object_keypoints_tpu_torch.utils.config import SystemConfig
+
+    batch = _tiny_detection_batch(0)
+    init = tiny_cornernet("CornerNet_Squeeze", 80, generator=torch.Generator().manual_seed(0))
+    runs = []
+    for device in (cuda, "cpu"):
+        tx = detection.make_detection_optimizer(SystemConfig(learning_rate=1e-2))
+        state = detection.create_train_state(copy.deepcopy(init), tx, device=device)
+        _, grads = detection.loss_and_grads(copy.deepcopy(state), batch)
+        state, metrics = detection.detection_train_step(state, batch)
+        runs.append((metrics["loss"].item(),
+                     {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+                     {k: g.cpu() for (k, _), g in zip(state.model.named_parameters(), grads)}))
+    (card_loss, card_sd, _), (cpu_loss, cpu_sd, cpu_grads) = runs
+    numpy.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    for key, want in cpu_sd.items():
+        if "running" in key:
+            torch.testing.assert_close(card_sd[key], want, rtol=1e-3, atol=1e-6,
+                                       msg=lambda m: f"{key}: {m}")
+        elif key in cpu_grads:
+            g = cpu_grads[key]
+            big = g.abs() > 0.2 * g.abs().max()
+            torch.testing.assert_close(card_sd[key][big], want[big], rtol=0, atol=1e-6,
+                                       msg=lambda m: f"{key}: {m}")
+
+
+def test_warm_detection_step_never_waits_for_the_card(cuda):
+    from object_keypoints_tpu_torch.data.prefetch import device_prefetch
+    from object_keypoints_tpu_torch.models.cornernet import tiny_cornernet
+    from object_keypoints_tpu_torch.training import detection
+    from object_keypoints_tpu_torch.utils.config import SystemConfig
+
+    state = detection.create_train_state(
+        tiny_cornernet("CornerNet_Squeeze", 80, generator=torch.Generator().manual_seed(0)),
+        detection.make_detection_optimizer(SystemConfig()), torch.bfloat16, device=cuda)
+    batches = device_prefetch(iter([_tiny_detection_batch(s) for s in range(3)]), cuda)
+    state, metrics = detection.detection_train_step(state, next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in batches:
+            state, metrics = detection.detection_train_step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.parametrize("arch", ["CornerNet_Squeeze", "CornerNet_Saccade"])
+def test_train_detector_cli_on_card_writes_what_the_eval_cli_reads(cuda, tmp_path, arch, capsys):
+    """cli.train_detector --tiny on the card for 6 iterations writes
+    <cfg>_6.pth, and cli.evaluate_detector --tiny --testiter 6 reads it on
+    the card."""
+    from object_keypoints_tpu_torch.cli import evaluate_detector, train_detector
+    from object_keypoints_tpu_torch.data.synthetic import make_synthetic_coco_dataset
+
+    ann, images = make_synthetic_coco_dataset(str(tmp_path / "data"), n_images=8,
+                                              image_size=(64, 64), seed=0)
+    snaps = tmp_path / "nnet"
+    state = train_detector.main([arch, "--annotations", ann, "--images", images, "--tiny",
+                                 "--max-iter", "6", "--batch-size", "4", "--snapshot-every", "3",
+                                 "--snapshot-dir", str(snaps)])
+    assert state.device.type == "cuda" and state.step == 6
+    assert sorted(p.name for p in snaps.iterdir()) == [f"{arch}_3.pth", f"{arch}_6.pth"]
+    out = evaluate_detector.main([arch, "--annotations", ann, "--image-dir", images, "--tiny",
+                                  "--testiter", "6", "--snapshot-dir", str(snaps),
+                                  "--result-dir", str(tmp_path / "results")])
+    assert "loading parameters at iteration: 6" in capsys.readouterr().out
+    assert 0.0 <= out["mAP"] <= 1.0

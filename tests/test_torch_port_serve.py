@@ -155,13 +155,14 @@ def test_port_never_imports_jax(tmp_path):
         "from object_keypoints_tpu_torch import constants, evaluation, testing\n"
         "from object_keypoints_tpu_torch.data import augment, encode, scene, synthetic, targets\n"
         "from object_keypoints_tpu_torch.data import augment_device, coco, combinators, prefetch\n"
+        "from object_keypoints_tpu_torch.data import detection_augment, detection_targets\n"
         "from object_keypoints_tpu_torch.vendor import cocotools\n"
         "from object_keypoints_tpu_torch.training import device_data, losses, trainer\n"
-        "from object_keypoints_tpu_torch.training import checkpoints, loop\n"
+        "from object_keypoints_tpu_torch.training import checkpoints, detection, loop\n"
         "from object_keypoints_tpu_torch import precision\n"
         "from object_keypoints_tpu_torch.utils import config, metrics, progress, tb_events, vis\n"
         "from object_keypoints_tpu_torch.cli import eval_model, flagship, package_model, train\n"
-        "from object_keypoints_tpu_torch.cli import detect, evaluate_detector\n"
+        "from object_keypoints_tpu_torch.cli import detect, evaluate_detector, train_detector\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'object_keypoints_tpu'))\n"
         "print(json.dumps(bad))\n"
