@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train, int8, the detectors.
+"""Smoke run of the PyTorch port on one CUDA card: serve, eval, train, int8, the detectors,
+multi-device serving and training.
 
     python3 chip_smoke.py
 
@@ -192,6 +193,32 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    ``cli.evaluate_detector --tiny --testiter 800``: mAP > 0.3, printed with
    AP50 beside the JAX package's CPU figure; then the tiny CornerNet-Saccade
    for 100 iterations, whose loss must fall.
+15. multi-device serving and training (``parallel``, ``serving.sharded``, the
+   synced BatchNorm, ``training.loop`` over a process group). (a)
+   ``make_sharded_inference_fn`` over every visible card (one replica each)
+   of the full-width model in bf16 at 96 frames of 511x511, bit for bit
+   ``make_inference_fn``'s on the same card; pairs/s of each in turns
+   (single, sharded, sharded, single) beside phase 5's serve step; an int8
+   artifact (scales calibrated in bf16 on 4 unit-normal frames) served
+   float32 by ``load_sharded_inference_fn``, within 1e-3 of
+   ``load_inference_fn``'s (the int8 serve on the card differs from call to
+   call by ~1e-4, printed beside it). (b) ``testing.rank_steps`` in a child process
+   under the launch contract (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES=1``,
+   ``PROCESS_ID=0``), a process group of one over NCCL on cuda:0: one
+   float32 step (dropout 0, TF32 off) of the full-width model on 8 synthetic
+   511x511 frames (no augment) against the same step in this process
+   without a group (loss rel 1e-5, the whole gradient within 1e-2 of its
+   norm, each running statistic within 1e-4 of its tensor's largest), then
+   the bf16 step's ms beside this process's bare bf16 step on the same
+   batch and phase 9's. (c) two ranks sharing the card over gloo: the same
+   step on 4 + 4 frames at the same gates, the ranks' weights equal; then
+   ``testing.rank_fit``: ``loop.fit`` over the two ranks on in-memory
+   sequences (``cli.flagship.synthetic_split``, 2 x 16 train frames, 16 val,
+   per rank), bf16, batch 4 a rank, 3 steps, after checking that
+   ``device_data=True`` raises; rank 0 alone writes the run, and its export
+   is served here by ``load_inference_fn`` (one fp32 stem launch). Every
+   child has a deadline and a group timeout; a failing or late child fails
+   the phase.
 
 The process's TF32 flags stay at torch's defaults: the port's entry points
 (``infer``, the train and eval steps) pin TF32 off themselves; phases 3 and
@@ -204,7 +231,9 @@ eval_steps), 10 (the loop's runs and the packaged models' serves), 11
 (the int8 serve steps and the int8 artifact's serve), 12 (the detectors'
 calls), 13 (the saccade's calls, the eval CLI's runs on the card) and 14
 (the eval CLI's run of the trained tiny detector; the train-mode stem runs
-on cuDNN) each set the counts to 0 before they run and read them after, and
+on cuDNN) and 15 (the sharded serves and the serve of the two-rank loop's
+export; the child processes' launches are their own) each set the counts
+to 0 before they run and read them after, and
 the kernels' line gives each kernel's launches from those runs. The int8 convolutions run on cuBLASLt's
 int8 GEMM, not on a kernel of this repository, so they are not in that line;
 phase 11 counts their launches apart.
@@ -243,6 +272,7 @@ STEM_SOURCE = "object_keypoints_tpu_torch/csrc/stem_conv.cu"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 STEM_KERNELS = {torch.bfloat16: "stem_conv_bf16", torch.float32: "stem_conv_fp32"}
+MODEL = dict(heatmaps_out=3)  # the valve KeypointNet at full width: KeypointNet's defaults
 
 
 def log(phase, **fields):
@@ -400,7 +430,7 @@ def stem_kernel_rows(stem_conv, stem_conv_plain):
 def make_model(dropout=0.1):
     from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet
 
-    return KeypointNet(heatmaps_out=3, dropout=dropout, generator=torch.Generator().manual_seed(SEED))
+    return KeypointNet(**MODEL, dropout=dropout, generator=torch.Generator().manual_seed(SEED))
 
 
 def phase_full_forward():
@@ -519,7 +549,7 @@ def phase_serve(card):
         stereo_pairs_per_sec=pairs_per_sec, step_ms=1e3 * seconds / iters,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         valid_centers=int(decoded.center_valid.sum()), stem_launches=launches, card=card)
-    return launches
+    return launches, pairs_per_sec
 
 
 STEREO_KW = dict(max_peaks=16, peak_threshold=0.5, epipolar_threshold=3.0)
@@ -2431,12 +2461,248 @@ def phase_detector_train(card):
     log("detector_train_phase", phase_s=time.perf_counter() - phase_t0)
     return launches
 
+DIST_BATCH = 8  # the global batch of phase 15's steps: 8 on one rank, 4 on each of two
+DIST_TIMED, DIST_WARM = 10, 3  # bf16 steps timed after the warm ones
+DIST_TIMEOUT = 300  # seconds for a launch of the ranks, start-up and the build included
+DIST_GROUP_TIMEOUT = 120  # seconds a collective may wait
+SHARD_TIMED = 10  # warm calls of each serve timed, in turns
+INT8_SHARD_ATOL = 1e-3  # sharded int8 against single-device int8, every map (seen 1.4e-4)
+
+
+def serve_pairs_per_sec(infer, frames, calls):
+    """Stereo pairs/s of ``calls`` back-to-back calls of ``infer`` (host
+    clock, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        infer(frames)
+    torch.cuda.synchronize()
+    return len(frames) // 2 * calls / (time.perf_counter() - t0)
+
+
+def rank_launch(mode, spec, world, tmp):
+    """``testing.rank_steps`` / ``rank_fit`` in ``world`` processes, each with
+    a deadline; a rank's failure fails the phase. Returns each rank's output
+    and the launch's wall seconds."""
+    from object_keypoints_tpu_torch.testing import launch_ranks
+
+    spec_path, out = f"{tmp}/{mode}_{world}_spec.pt", f"{tmp}/{mode}_{world}_out"
+    torch.save(spec, spec_path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    results = launch_ranks(["-m", "object_keypoints_tpu_torch.testing", mode, spec_path, out],
+                           world, DIST_TIMEOUT, env={"PYTHONPATH": root}, cwd=root)
+    seconds = time.perf_counter() - t0
+    for rank, (code, stdout, err) in enumerate(results):
+        assert code == 0, f"{mode} rank {rank} of {world} exited {code}:\n{stdout[-3000:]}\n{err[-6000:]}"
+    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)], seconds
+
+
+def step_against(what, run, want):
+    """One float32 step of a process group (its first run) against the
+    single-process step ``want`` (loss, metrics, grads, state_dict): loss
+    rel 1e-5, the whole gradient within 1e-2 of its norm, each running
+    statistic within 1e-4 of its tensor's largest."""
+    loss, grads, sd = want
+    got_loss = run["metrics"][0]["loss"]
+    loss_rel = abs(got_loss - loss) / abs(loss)
+    grad_rel = (sum((g.double() - w.double()).square().sum() for g, w in zip(run["grads"], grads))
+                / sum(w.double().square().sum() for w in grads)).sqrt().item()
+    stats_rel = max(((run["state_dict"][k].double() - sd[k].double()).abs().max()
+                     / sd[k].double().abs().max()).item() for k in sd if "running" in k)
+    fields = dict(loss=got_loss, single_process_loss=loss, loss_rel=loss_rel, grad_rel=grad_rel,
+                  running_stats_rel=stats_rel)
+    assert loss_rel <= 1e-5 and grad_rel <= 1e-2 and stats_rel <= 1e-4, (what, fields)
+    return fields
+
+
+def phase_distributed(card, serve_step_pairs_per_sec, bare_step_ms):
+    """Multi-device serving and training on the card: (a) the sharded serve
+    of the full-width model in bf16 at 96 frames and of an int8 artifact,
+    bit for bit the single-device serve's; (b) a full-width step over a
+    process group of one (NCCL, the launch contract, a child process)
+    against the single-process step; (c) two ranks sharing the card over
+    gloo, their step on 4 + 4 frames against the single-process step on the
+    8, then ``loop.fit`` over them and rank 0's export served here."""
+    from object_keypoints_tpu_torch.parallel import create_mesh
+    from object_keypoints_tpu_torch.serving.calibration import calibration_batches
+    from object_keypoints_tpu_torch.serving.export import (
+        export_model,
+        load_inference_fn,
+        make_inference_fn,
+    )
+    from object_keypoints_tpu_torch.serving.quantize import calibrate_activation_scales
+    from object_keypoints_tpu_torch.serving.sharded import (
+        load_sharded_inference_fn,
+        make_sharded_inference_fn,
+    )
+    from object_keypoints_tpu_torch.testing import synthetic_datasets
+    from object_keypoints_tpu_torch.training import device_data, trainer
+
+    phase_t0 = time.perf_counter()
+    launches = {k: 0 for k in stem_counts()}
+
+    def counted(fn):
+        reset_stem_counts()  # a counted run starts here
+        out = fn()
+        for k, v in stem_counts().items():  # ... and ends here
+            launches[k] += v
+        return out
+
+    # (a) the sharded serve: every visible card, one replica each
+    devices = create_mesh()
+    model = make_model()
+    single = make_inference_fn(copy.deepcopy(model), dtype=torch.bfloat16, device="cuda")
+    shard = make_sharded_inference_fn(model, dtype=torch.bfloat16)
+    frames = torch.randn(2 * PAIRS, 3, 511, 511,
+                         generator=torch.Generator().manual_seed(SEED + 2)).to("cuda", torch.bfloat16)
+    want = single(frames)
+    got = counted(lambda: shard(frames))
+    assert launches == {"all": len(devices), "stem_conv_bf16": len(devices), "stem_conv_fp32": 0}, (
+        launches)
+    for g, w in zip(got, want):
+        assert g.device == devices[0] and g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert torch.equal(g, w), "the sharded serve differs from the single-device serve"
+    single_pps = [serve_pairs_per_sec(single, frames, SHARD_TIMED)]
+    shard_pps = counted(lambda: [serve_pairs_per_sec(shard, frames, SHARD_TIMED) for _ in range(2)])
+    single_pps.append(serve_pairs_per_sec(single, frames, SHARD_TIMED))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the int8 artifact: scales calibrated in bf16 on unit-normal frames
+        # (the package CLI's fallback), served float32 as load_inference_fn does
+        calib = list(np.random.default_rng(0).normal(size=(4, 511, 511, 3)).astype(np.float32))
+        model.to("cuda", memory_format=torch.channels_last).eval()
+
+        def apply(batch):
+            x = torch.from_numpy(batch).to("cuda").permute(0, 3, 1, 2)
+            model(x.to(torch.bfloat16).contiguous())
+
+        scales = calibrate_activation_scales(model, apply, calibration_batches(calib))
+        export_model(f"{tmp}/int8", {**MODEL, "input_size": 511,
+                                     "keypoint_config": list(KEYPOINT_CONFIG)}, model,
+                     quant_scales=scales)
+        del model, single, shard
+        small = frames[:EVAL_BATCH].float()
+        single8 = load_inference_fn(f"{tmp}/int8", device="cuda")
+        want8 = single8(small)
+        before = dict(launches)
+        got8 = counted(lambda: load_sharded_inference_fn(f"{tmp}/int8")(small))
+        int8_launches = {k: launches[k] - before[k] for k in launches}
+        assert int8_launches["stem_conv_fp32"] == len(devices), int8_launches
+        # the int8 serve on the card is not bit-reproducible from call to call
+        # (two calls of one replica differed by up to 1.4e-4 on an H100), so
+        # the sharded one is held to the single-device one within INT8_SHARD_ATOL
+        # and the single serve's own call-to-call difference is printed beside it
+        again8 = single8(small)
+        int8_err = [(g - w).abs().max().item() for g, w in zip(got8, want8)]
+        int8_repeat = [(g - w).abs().max().item() for g, w in zip(again8, want8)]
+        for g in got8:
+            assert torch.isfinite(g).all()
+        assert max(int8_err) <= INT8_SHARD_ATOL, (int8_err, int8_repeat)
+        torch.cuda.empty_cache()
+
+        # the batch of (b) and (c): 8 synthetic 511x511 frames, no augment
+        datasets = synthetic_datasets(f"{tmp}/data", CALIBRATION, KEYPOINT_CONFIG, n_sequences=1,
+                                      n_frames=DIST_BATCH, n_objects=2, seed=SEED)
+        store = device_data.build_device_store(datasets, "cuda")
+        batch = device_data.device_batch(store, torch.arange(DIST_BATCH, device="cuda"),
+                                         (1, *KEYPOINT_CONFIG), augment=False)
+        batch = {k: v.contiguous().cpu().numpy() for k, v in batch.items()}
+        del store
+        init = state_dict_to(make_model(dropout=0.0), "cpu")
+
+        def single_process(dtype, timed):
+            """The first step in this process (no process group) on the card:
+            (loss, gradients, weights after it); then, with ``timed``, the ms
+            of a step over ``timed`` steps after DIST_WARM."""
+            mdl = make_model(dropout=0.0)
+            mdl.load_state_dict(init)
+            state = trainer.create_train_state(mdl, trainer.make_optimizer(lr=TRAIN_LR), dtype,
+                                               "cuda")
+            loss, _, grads = trainer.loss_and_grads(state, batch)
+            first = (loss.item(), [g.cpu() for g in grads])
+            trainer.apply_gradients(state, grads, loss)
+            first += (state_dict_to(mdl, "cpu"),)
+            if not timed:
+                return first, None
+            for _ in range(DIST_WARM - 1):
+                trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            return first, 1e3 * (time.perf_counter() - t0) / timed
+
+        _, bare_ms = single_process(torch.bfloat16, DIST_TIMED)
+        want_step, _ = single_process(torch.float32, 0)
+        torch.cuda.empty_cache()
+        model_kwargs = dict(MODEL, dropout=0.0)
+        runs = [dict(dtype="float32", optimizer=dict(lr=TRAIN_LR), batches=[batch]),
+                dict(dtype="bfloat16", optimizer=dict(lr=TRAIN_LR),
+                     batches=[batch] * (DIST_WARM + DIST_TIMED), warm=DIST_WARM)]
+        # (b) a group of one over NCCL, the default backend on the card
+        (one,), one_s = rank_launch("steps", dict(model=model_kwargs, state_dict=init,
+                                                  device="cuda", backend=None,
+                                                  timeout=DIST_GROUP_TIMEOUT, runs=runs), 1, tmp)
+        nccl = step_against("world 1 over NCCL", one["runs"][0], want_step)
+        # (c) two ranks sharing the card over gloo, 4 frames each
+        two, two_s = rank_launch("steps", dict(model=model_kwargs, state_dict=init, device="cuda",
+                                               backend="gloo", timeout=DIST_GROUP_TIMEOUT,
+                                               runs=runs[:1]), 2, tmp)
+        gloo = [step_against(f"rank {o['rank']} of 2 over gloo", o["runs"][0], want_step)
+                for o in two]
+        for k, v in two[0]["runs"][0]["state_dict"].items():
+            assert torch.equal(v, two[1]["runs"][0]["state_dict"][k]), k
+        layout = {k: v for k, v in MODEL.items() if k not in ("heatmaps_out", "features")}
+        config = dict(keypoint_config=list(KEYPOINT_CONFIG), batch_size=DIST_BATCH // 2,
+                      lr=TRAIN_LR, bf16=True, seed=SEED, epochs=1, steps_per_epoch=3, log_every=1,
+                      out_dir=f"{tmp}/run", features=MODEL.get("features", 128),
+                      model_overrides=layout or None)
+        fitted, fit_s = rank_launch("fit", dict(config=config, device="cuda", backend="gloo",
+                                                timeout=DIST_GROUP_TIMEOUT,
+                                                synthetic=dict(root=f"{tmp}/fit_data", n_train=2,
+                                                               n_frames=LOOP_FRAMES, n_objects=2)),
+                                    2, tmp)
+        assert fitted[0]["result"] == fitted[1]["result"], fitted
+        assert fitted[0]["result"]["steps"] == 3 and "single process" in fitted[0]["device_data_error"]
+        assert sorted(os.listdir(f"{tmp}/run")) == ["best.msgpack", "best_val.json", "export",
+                                                     "hparams.json", "last.pt", "metrics.jsonl"]
+        with open(f"{tmp}/run/metrics.jsonl") as f:
+            logged = [json.loads(line) for line in f]
+        assert [r["step"] for r in logged] == [1, 2, 3, 3], logged
+        before = dict(launches)
+        maps = counted(lambda: load_inference_fn(f"{tmp}/run/export", device="cuda")(small))
+        export_launches = {k: launches[k] - before[k] for k in launches}
+        assert export_launches == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, export_launches
+        for t in maps:
+            assert t.device.type == "cuda" and torch.isfinite(t).all()
+
+    log("distributed", devices=[str(d) for d in devices], frames=list(frames.shape), dtype="bfloat16",
+        sharded_equals_single=True, int8_convs=len(scales), sharded_int8_vs_single=int8_err,
+        single_int8_call_to_call=int8_repeat, int8_atol=INT8_SHARD_ATOL,
+        sharded_pairs_per_sec=shard_pps, single_pairs_per_sec=single_pps,
+        serve_step_pairs_per_sec_phase5=serve_step_pairs_per_sec,
+        world1_nccl=dict(nccl, bf16_step_ms=one["runs"][1]["step_ms"], launch_s=one_s),
+        bare_bf16_step_ms=bare_ms, bare_step_ms_phase9=bare_step_ms, batch=DIST_BATCH,
+        two_ranks_gloo=dict(ranks=gloo, launch_s=two_s, frames_per_rank=DIST_BATCH // 2),
+        fit_two_ranks=dict(result=fitted[0]["result"], launch_s=fit_s,
+                           losses=[r["loss"] for r in logged if "loss" in r],
+                           val_loss=logged[-1]["val_loss"]),
+        tolerance="the bf16 sharded serve bit for bit, the int8 one within int8_atol; steps: loss "
+                  "rel 1e-5, the whole gradient within 1e-2 of its norm, each running statistic "
+                  "within 1e-4 of its tensor's largest",
+        stem_launches=launches, int8_stem_launches=int8_launches,
+        export_stem_launches=export_launches, phase_s=time.perf_counter() - phase_t0, card=card)
+    return launches
+
 
 def main():
     card = phase_device()
     phase_build()
     stem = phase_stem_kernel()
-    paths = [phase_full_forward(), phase_serve(card), phase_stereo_serve(card)]
+    serve_launches, serve_pps = phase_serve(card)
+    paths = [phase_full_forward(), serve_launches, phase_stereo_serve(card)]
     phase_stereo_scene()
     paths.append(phase_eval(card))
     train_launches, bare_step_ms = phase_train(card)
@@ -2447,6 +2713,7 @@ def main():
     paths.append(phase_saccade(card))
     paths.append(phase_detector_eval(card))
     paths.append(phase_detector_train(card))
+    paths.append(phase_distributed(card, serve_pps, bare_step_ms))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

@@ -8,14 +8,20 @@ without one) unless ``--cpu`` asks for the CPU; writes metrics.jsonl,
 hparams.json, the checkpoints and the serving artifact under ``--out`` and
 prints the loop's result as JSON. ``--fp16`` trains in bfloat16 (float32
 parameters and BatchNorm); ``--workers`` is the host pipeline's prefetch
-depth. Training over several processes (``COORDINATOR_ADDRESS``) is not
-ported: with it set the CLI raises.
+depth.
+
+Several processes, one a card (the JAX CLI's launch contract): run one copy
+per process with ``COORDINATOR_ADDRESS=host:port NUM_PROCESSES=n
+PROCESS_ID=i`` set. ``parallel.initialize_distributed`` joins them in a
+process group (NCCL on the cards, gloo with ``--cpu``) and rank i trains on
+``cuda:(i % device_count)``; ``--batch-size`` is per process, and rank 0
+alone writes the run.
 """
 
 import argparse
 import json
-import os
 
+from object_keypoints_tpu_torch.parallel import destroy_distributed, initialize_distributed
 from object_keypoints_tpu_torch.training.loop import TrainConfig, train
 
 
@@ -58,9 +64,17 @@ def read_args(argv=None):
 
 def main(argv=None):
     flags = read_args(argv)
-    if os.environ.get("COORDINATOR_ADDRESS"):
-        raise RuntimeError("COORDINATOR_ADDRESS is set, but training over several processes is "
-                           "not ported yet (ROADMAP.md, item 4); unset it to train on one device")
+    device = "cpu" if flags.cpu else "cuda"
+    # None when COORDINATOR_ADDRESS is unset; else this process's device
+    joined = initialize_distributed(device=device)
+    try:
+        return run(flags, joined or device)
+    finally:
+        if joined is not None:
+            destroy_distributed()
+
+
+def run(flags, device):
     with open(flags.keypoints) as f:
         keypoint_config = json.load(f)["keypoint_config"]
     config = TrainConfig(
@@ -83,7 +97,7 @@ def main(argv=None):
         ckpt_every=flags.ckpt_every,
         tensorboard=flags.tensorboard,
     )
-    result = train(config, device="cpu" if flags.cpu else "cuda", prefetch=flags.workers)
+    result = train(config, device=device, prefetch=flags.workers)
     print(json.dumps(result, indent=2))
     return result
 

@@ -12,7 +12,8 @@ Precision follows the JAX package's ``dtype`` rule (``precision``): the
 parameters and BatchNorm statistics stay float32 and a block computes in
 its input's dtype. ``Conv2d`` and ``ConvTranspose2d`` cast their weights to
 it; ``BatchNorm2d`` is flax's BatchNorm (momentum 0.9, eps 1e-5, the biased
-batch variance folded into the running one).
+batch variance folded into the running one), over the whole group's batch
+when a process group is initialized (``parallel``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from object_keypoints_tpu_torch import parallel
 from object_keypoints_tpu_torch.ops.stem_conv import fold_bn, stem_conv
 
 MOMENTUM = 0.9  # flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
@@ -73,7 +75,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     and returns the input's dtype. Train mode normalizes by the batch's
     biased variance and folds that same biased variance into
     ``running_var``, as flax does: ``nn.BatchNorm2d`` folds the unbiased
-    one, n / (n - 1) larger. ``num_batches_tracked`` is not counted."""
+    one, n / (n - 1) larger. ``num_batches_tracked`` is not counted.
+
+    Where a process group is initialized (``parallel.initialize_distributed``,
+    at world size 1 too) train mode takes flax's global view of the batch
+    across the ranks, as the JAX package's BatchNorm does over a mesh: each
+    rank sums its channels' values and squares and counts them, one
+    differentiable all-reduce adds them up, and the variance is
+    E[x^2] - E[x]^2 of the whole batch, flax's formula; that biased variance
+    goes into ``running_var``, so every rank keeps the same statistics. The
+    sums accumulate in float64 whatever the input's dtype: that formula
+    cancels where a channel's mean is many of its deviations, and float32
+    sums over 2 x 256 x 256 values a rank put 5e-3 of the gradient's norm
+    between a two-rank float32 step and float64 (7e-5 with float64 sums,
+    as a one-process float32 step). The normalization runs in float32
+    (float64 for a float64 input). ``nn.SyncBatchNorm`` is not used: it
+    needs CUDA and folds the unbiased variance."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-5, momentum=1.0 - MOMENTUM)
@@ -82,6 +99,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if parallel.is_distributed():
+            return self._global_forward(x)
         # momentum 1 writes the batch's mean and unbiased variance into `batch`
         batch = self.running_mean.new_zeros(2, self.num_features)
         y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias, True, 1.0, self.eps)
@@ -90,6 +109,27 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(MOMENTUM).add_(batch[0], alpha=1.0 - MOMENTUM)
             self.running_var.mul_(MOMENTUM).add_(batch[1], alpha=(1.0 - MOMENTUM) * (n - 1) / n)
         return y
+
+    def _global_forward(self, x):
+        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+        xf = x.to(acc)
+        c = x.shape[1]
+        f64 = torch.float64
+        local = torch.cat([xf.sum((0, 2, 3), dtype=f64), xf.square().sum((0, 2, 3), dtype=f64),
+                           xf.new_full((1,), x.numel() // c, dtype=f64)])
+        total = parallel.all_reduce_autograd(local)
+        count = total[2 * c].detach()
+        mean = total[:c] / count
+        var = torch.clamp(total[c:2 * c] / count - mean.square(), min=0.0)
+        mean, var = mean.to(acc), var.to(acc)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias.to(acc)[:, None, None]
+        with torch.no_grad():
+            self.running_mean.mul_(MOMENTUM).add_(mean.to(self.running_mean.dtype),
+                                                  alpha=1.0 - MOMENTUM)
+            self.running_var.mul_(MOMENTUM).add_(var.to(self.running_var.dtype),
+                                                 alpha=1.0 - MOMENTUM)
+        return y.to(x.dtype)
 
 
 class ConvBlock(nn.Module):

@@ -90,14 +90,18 @@ def architecture(config: dict) -> dict:
 
 
 def export_model(path: str, config: dict, model, quant_scales: Optional[dict] = None) -> None:
-    """Write the serving artifact of ``model`` (a port KeypointNet or its
-    state_dict) with ``config``: config.json and params.msgpack as the JAX
+    """Write the serving artifact of ``model`` (a port KeypointNet, its
+    state_dict, or JAX-layout ``{"params", "batch_stats"}`` variables, written
+    as they are) with ``config``: config.json and params.msgpack as the JAX
     package's ``export_model`` writes them, float32, and with
     ``quant_scales`` (``serving.quantize.calibrate_activation_scales``)
     quant.json. The weights go through a temporary file and ``os.replace``,
     so a killed process leaves no truncated artifact."""
-    state = model.state_dict() if isinstance(model, torch.nn.Module) else model
-    variables = keypoint_net_variables(state, **architecture(config))
+    if isinstance(model, dict) and "params" in model:
+        variables = model
+    else:
+        state = model.state_dict() if isinstance(model, torch.nn.Module) else model
+        variables = keypoint_net_variables(state, **architecture(config))
     os.makedirs(path, exist_ok=True)
     if quant_scales:
         with open(os.path.join(path, QUANT_NAME), "wt") as f:
@@ -166,15 +170,21 @@ def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda",
     return infer
 
 
-def load_inference_fn(path: str, dtype=torch.float32, quantize: str = "auto", device="cuda"):
-    """``make_inference_fn`` over an artifact, on the card unless
-    ``device="cpu"``. ``quantize`` as in the JAX package: "auto" serves int8
-    if and only if the artifact holds quant.json, "require" int8 (raising
+def load_served_model(path: str, quantize: str = "auto"):
+    """(model, activation scales or None) of an artifact as it is served.
+    ``quantize`` as in the JAX package: "auto" serves int8 if and only if
+    the artifact holds quant.json, "require" int8 (raising
     ``FileNotFoundError`` where there is no quant.json), "never" float."""
     if quantize not in ("auto", "never", "require"):
         raise ValueError(f"quantize={quantize!r}: expected 'auto', 'never' or 'require'")
     scales = None if quantize == "never" else load_quant_scales(path)
     if quantize == "require" and not scales:
         raise FileNotFoundError(f"no {QUANT_NAME} in artifact {path}")
-    model, _ = load_model(path)
+    return load_model(path)[0], scales
+
+
+def load_inference_fn(path: str, dtype=torch.float32, quantize: str = "auto", device="cuda"):
+    """``make_inference_fn`` over an artifact (``load_served_model``'s
+    ``quantize`` modes), on the card unless ``device="cpu"``."""
+    model, scales = load_served_model(path, quantize)
     return make_inference_fn(model, dtype=dtype, device=device, quant_scales=scales)

@@ -18,12 +18,23 @@
   work (random heads pair no corners and attend nowhere).
 - ``coco_rows`` / ``compare_coco_rows``: COCO results (results.json) as
   rows, and two of them compared as sets of boxes.
+- ``launch_ranks``: one process a rank under the launch contract
+  (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID``), each with a
+  deadline, all killed when one fails; ``rank_steps`` and ``rank_fit``, what
+  the ranks run (``python -m object_keypoints_tpu_torch.testing steps|fit
+  <spec> <out>``): train steps on each rank's slice of global batches, and
+  ``training.loop`` over the group.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -272,3 +283,175 @@ def compare_coco_rows(what: str, got: np.ndarray, want: np.ndarray, atol_box: fl
     if box > atol_box or score > atol_score:
         raise AssertionError(f"{what}: boxes {box} px, scores {score}; worst pair {worst}")
     return {"rows": len(want), "box_px": box, "score": score}
+
+
+# ---------------------------------------------------------------- several ranks
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(args, world: int, timeout: float, env=None, cwd=None) -> list:
+    """Run ``python <args>`` once per rank with ``COORDINATOR_ADDRESS`` (a
+    free port on 127.0.0.1), ``NUM_PROCESSES`` and ``PROCESS_ID`` set; wait
+    for them all, at most ``timeout`` seconds in all. When one exits with
+    an error the others are killed; past the deadline all are, and
+    ``TimeoutError`` is raised. Returns each rank's (returncode, stdout,
+    stderr)."""
+    base = {**os.environ, **(env or {}), "COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+            "NUM_PROCESSES": str(world)}
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [(open(f"{tmp}/{r}.out", "w+"), open(f"{tmp}/{r}.err", "w+")) for r in range(world)]
+        procs = [subprocess.Popen([sys.executable, *args], env={**base, "PROCESS_ID": str(r)},
+                                  cwd=cwd, stdout=out, stderr=err)
+                 for r, (out, err) in enumerate(logs)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.returncode for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        timed_out = time.monotonic() > deadline
+        results = []
+        for p, (out, err) in zip(procs, logs):
+            out.seek(0)
+            err.seek(0)
+            results.append((p.returncode, out.read(), err.read()))
+            out.close()
+            err.close()
+    if timed_out:
+        raise TimeoutError(f"ranks did not finish in {timeout} s: "
+                           + " | ".join(e[-2000:] for _, _, e in results))
+    return results
+
+
+def _rank_device(spec: dict):
+    from object_keypoints_tpu_torch import parallel
+
+    if spec["device"] == "cpu":
+        torch.set_num_threads(spec.get("threads", 1))
+    return parallel.initialize_distributed(spec.get("backend"), spec["device"], spec["timeout"])
+
+
+def _steps(spec: dict, run: dict, device) -> dict:
+    """One run of ``rank_steps``: a fresh train state from the spec's
+    weights, then a step on this rank's slice of each of ``run["batches"]``."""
+    from object_keypoints_tpu_torch import parallel
+    from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet
+    from object_keypoints_tpu_torch.training import trainer
+
+    dtype = getattr(torch, run.get("dtype", "float32"))
+    model = KeypointNet(**spec["model"])
+    model.load_state_dict(spec["state_dict"])
+    if dtype == torch.float64:
+        model.double()
+    state = trainer.create_train_state(model, trainer.make_optimizer(**run["optimizer"]), dtype,
+                                       device)
+    generator = torch.Generator(device=device).manual_seed(run.get("seed", 0) + 1009 * parallel.rank())
+    out = {"metrics": [], "lr_scale": []}
+    warm = run.get("warm", len(run["batches"]))
+    for i, batch in enumerate(run["batches"]):
+        if i == warm:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+        loss, metrics, grads = trainer.loss_and_grads(state, parallel.batch_sharding(batch),
+                                                      generator)
+        if i == 0:
+            out["grads"] = [g.detach().cpu() for g in grads]
+        trainer.apply_gradients(state, grads, loss)
+        if i < warm:
+            out["metrics"].append({k: v.item() for k, v in metrics.items()})
+            out["lr_scale"].append(state.lr_scale.item())
+    if warm < len(run["batches"]):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0) / (len(run["batches"]) - warm)
+    eval_metrics = trainer.eval_step(state, parallel.batch_sharding(run["batches"][0]))
+    out["eval"] = {k: v.item() for k, v in eval_metrics.items()}
+    out["state_dict"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return out
+
+
+def rank_steps(spec_path: str, out_path: str) -> None:
+    """A rank's part of train steps over a process group: ``spec`` (a
+    ``torch.save``d dict) holds the KeypointNet's arguments (``model``), its
+    weights (``state_dict``), the ``device``, ``backend`` and ``timeout``,
+    and ``runs``, each with its ``optimizer`` arguments, ``dtype`` and global
+    ``batches`` (numpy dicts; a rank steps on its slice), and optionally
+    ``warm``: the steps after the first ``warm`` are timed, not recorded.
+    Writes ``out_path.<rank>``: per run the metrics and ``lr_scale`` after
+    each step, the first step's gradients, ``eval_step``'s metrics on the
+    rank's slice of the first batch after the steps, the final weights and
+    buffers."""
+    from object_keypoints_tpu_torch import parallel
+
+    spec = torch.load(spec_path, weights_only=False)
+    device = _rank_device(spec)
+    try:
+        runs = [_steps(spec, run, device) for run in spec["runs"]]
+        torch.save({"rank": parallel.rank(), "world": parallel.world_size(), "runs": runs},
+                   f"{out_path}.{parallel.rank()}")
+    finally:
+        parallel.destroy_distributed()
+
+
+def rank_fit(spec_path: str, out_path: str) -> None:
+    """A rank's part of ``training.loop`` over a process group: ``spec``
+    holds the ``TrainConfig`` fields (``config``), the ``device``,
+    ``backend`` and ``timeout``, and either sequence directories in the
+    config (``loop.train``) or ``synthetic``, the arguments of
+    ``cli.flagship.synthetic_split`` for in-memory train and val splits that
+    each rank makes under its own root (``loop.fit``). First checks that
+    ``device_data=True`` raises. Writes ``out_path.<rank>``: the loop's
+    result and that error's message."""
+    import dataclasses
+
+    from object_keypoints_tpu_torch import parallel
+    from object_keypoints_tpu_torch.training import loop
+
+    spec = torch.load(spec_path, weights_only=False)
+    device = _rank_device(spec)
+    try:
+        config = loop.TrainConfig(**spec["config"])
+        synthetic = spec.get("synthetic")
+        if synthetic is None:
+            splits = [(loop._sequence_dirs(d), None, train)
+                      for d, train in ((config.train, True), (config.val, False))]
+        else:
+            from object_keypoints_tpu_torch.cli.flagship import synthetic_split
+
+            root = f"{synthetic['root']}/rank{parallel.rank()}"
+            splits = []
+            for split, n, train in (("train", synthetic["n_train"], True), ("val", 1, False)):
+                built = synthetic_split(root, split, n, config.keypoint_config,
+                                        synthetic["n_frames"], n_objects=synthetic["n_objects"])
+                splits.append(([d for d, _ in built], [r for _, r in built], train))
+
+        def datasets():  # fresh augment streams for each fit
+            return [loop.sequences(dirs, config, train, recordings)
+                    for dirs, recordings, train in splits]
+
+        try:
+            loop.fit(dataclasses.replace(config, device_data=True), *datasets(), device=device)
+            error = None
+        except ValueError as e:
+            error = str(e)
+        result = loop.fit(config, *datasets(), device=device)
+        torch.save({"rank": parallel.rank(), "result": result, "device_data_error": error},
+                   f"{out_path}.{parallel.rank()}")
+    finally:
+        parallel.destroy_distributed()
+
+
+if __name__ == "__main__":
+    {"steps": rank_steps, "fit": rank_fit}[sys.argv[1]](*sys.argv[2:])

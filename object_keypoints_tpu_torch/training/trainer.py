@@ -24,6 +24,14 @@ distance between the last stack's sigmoid heatmap and its target.
   w, K), centers (N, h, w, T, 2). The step permutes them to NCHW views.
 - **Randomness** (dropout) comes from an explicit ``torch.Generator`` on
   the model's device.
+- **Over a process group** (``parallel``) each rank steps on its slice of
+  the global batch: BatchNorm takes the global statistics, one all-reduce a
+  step averages the gradients (``grad_norm`` is the averaged gradients'),
+  and the metrics are the JAX global step's: the loss and the heatmap losses
+  the mean over the ranks, the depth and center losses (sums over the
+  batch, the reference's unnormalized log) their sum. The plateau schedule
+  sees the global loss, so every rank keeps the same ``lr_scale`` and the
+  same weights.
 
 The train state holds the model itself: its parameters and its BatchNorm
 running statistics (the JAX state's ``params`` and ``batch_stats``), updated
@@ -38,6 +46,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from object_keypoints_tpu_torch import parallel
 from object_keypoints_tpu_torch.data.scene import normalize_frames
 from object_keypoints_tpu_torch.precision import no_tf32
 from object_keypoints_tpu_torch.training.losses import keypoint_loss
@@ -248,18 +257,43 @@ def loss_and_metrics(model, batch: dict, train: bool, dtype=torch.float32,
     return total, metrics, outs
 
 
+def _summed(name: str) -> bool:
+    """Whether the global step sums metric ``name`` over the ranks: the
+    depth and center losses are sums over the batch (losses.py:82-87); the
+    rest are means."""
+    return name.removeprefix("val_").startswith(("depth_loss", "center_loss"))
+
+
+def reduce_metrics(metrics: dict, extra=()) -> dict:
+    """``metrics`` (device scalars) as the global step computes them over
+    the process group: sums for the depth and center losses, means for the
+    rest; ``extra`` tensors are averaged in the same all-reduce, in place."""
+    names = sorted(metrics)
+    extra = list(extra)
+    dtype = extra[0].dtype if extra else metrics[names[0]].dtype
+    stacked = torch.stack([metrics[k].to(dtype) for k in names])
+    parallel.all_reduce_([*extra, stacked], mean=[True] * len(extra) + [False])
+    world = parallel.world_size()
+    return {k: (v if _summed(k) else v / world).to(metrics[k].dtype)
+            for k, v in zip(names, stacked)}
+
+
 def loss_and_grads(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None,
                    depth_weight: float = 10.0, center_weight: float = 1.0):
     """The step's forward and backward in train mode: (loss, metrics,
     gradients of ``state.params``); the BatchNorm running statistics are
-    updated. ``metrics["grad_norm"]`` is the global norm of the raw
-    gradients."""
+    updated. ``metrics["grad_norm"]`` is the global norm of the gradients.
+    Over a process group the loss, the metrics and the gradients are the
+    global batch's (one all-reduce)."""
     batch = to_device(batch, state.device)
     params = state.params
     with no_tf32():
         loss, metrics, _ = loss_and_metrics(state.model, batch, True, state.dtype, generator,
                                             depth_weight, center_weight)
         grads = list(torch.autograd.grad(loss, params))
+    if parallel.is_distributed():
+        metrics = reduce_metrics(metrics, grads)
+        loss = metrics["loss"]
     metrics["grad_norm"] = global_norm(grads)
     return loss.detach(), metrics, grads
 
@@ -280,11 +314,13 @@ def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generat
 
 
 def eval_step(state: TrainState, batch: dict, depth_weight: float = 10.0,
-              center_weight: float = 1.0) -> dict:
+              center_weight: float = 1.0, reduce: bool = True) -> dict:
     """Validation metrics in eval mode (the stem runs its CUDA kernel on the
     card): ``val_loss``, the mean |sigmoid(last-stack heatmap) - target|;
     ``total_heatmap_loss``, the loss; and ``val_<name>`` for each per-stack
-    loss."""
+    loss. Over a process group, where each rank holds a slice of the batch,
+    they are the global batch's (``reduce_metrics``); ``reduce=False`` keeps
+    this rank's."""
     batch = to_device(batch, state.device)
     with torch.no_grad(), no_tf32():
         _, metrics, outs = loss_and_metrics(state.model, batch, False, state.dtype, None,
@@ -293,4 +329,4 @@ def eval_step(state: TrainState, batch: dict, depth_weight: float = 10.0,
         val_loss = (p_heatmap - batch["heatmaps"].permute(0, 3, 1, 2)).abs().mean()
     out = {"val_loss": val_loss, "total_heatmap_loss": metrics["loss"]}
     out.update({"val_" + k: v for k, v in metrics.items() if k != "loss"})
-    return out
+    return reduce_metrics(out) if reduce and parallel.is_distributed() else out

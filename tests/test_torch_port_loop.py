@@ -48,6 +48,7 @@ from object_keypoints_tpu.training import checkpoints as jcheckpoints  # noqa: E
 from object_keypoints_tpu.training import loop as jloop  # noqa: E402
 from object_keypoints_tpu.utils import metrics as jmetrics  # noqa: E402
 from object_keypoints_tpu.utils import tb_events as jtb_events  # noqa: E402
+from object_keypoints_tpu_torch import testing  # noqa: E402
 from object_keypoints_tpu_torch.cli import flagship, package_model  # noqa: E402
 from object_keypoints_tpu_torch.cli import train as train_cli  # noqa: E402
 from object_keypoints_tpu_torch.serving import weights  # noqa: E402
@@ -483,11 +484,49 @@ def test_package_cli_refuses_int8(tmp_path, flags):
     assert sorted(os.listdir(tmp_path / "a")) == ["config.json", "params.msgpack"]
 
 
-def test_train_cli_refuses_several_processes(tree, tmp_path, monkeypatch):
-    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
+def test_train_cli_trains_over_two_processes(tree, tmp_path):
+    """The train CLI under COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID
+    with --cpu (two gloo ranks, each in its own process): both ranks train
+    and print the same result; rank 0 alone writes the run."""
     train_dir, val_dir = tree
-    with pytest.raises(RuntimeError, match="several processes"):
+    out = tmp_path / "run"
+    code = ("import functools, sys\n"
+            "import torch\n"
+            "from object_keypoints_tpu_torch.cli import train\n"
+            "from object_keypoints_tpu_torch.training import loop\n"
+            f"train.TrainConfig = functools.partial(loop.TrainConfig, model_overrides={TINY!r})\n"
+            "torch.set_num_threads(1)\n"
+            "train.main(sys.argv[1:])\n")
+    flags = ["--train", train_dir, "--val", val_dir, "--keypoints",
+             str(ROOT / "config/valve.json"), "--batch-size", "2", "--pool", "4",
+             "--features", "8", "--dropout", "0", "--epochs", "1", "--out", str(out), "--cpu"]
+    ranks = testing.launch_ranks(["-c", code, *flags], 2, 120, env={"PYTHONPATH": str(ROOT)})
+    printed = []
+    for code_, stdout, err in ranks:
+        assert code_ == 0, err[-4000:]
+        printed.append(json.loads(stdout[stdout.rindex("{\n"):]))
+    # each process draws all 8 train frames in its own order, 2 a step
+    assert printed[0] == printed[1] and printed[0]["steps"] == 4
+    assert sorted(os.listdir(out)) == ["best.msgpack", "best_val.json", "export",
+                                       "hparams.json", "last.pt", "metrics.jsonl"]
+    assert [r["step"] for r in records(out)] == [4]  # rank 0's val record alone
+    assert "[val]" in ranks[0][1] and "[val]" not in ranks[1][1]
+
+
+def test_train_cli_raises_the_jax_contract_error(tree, tmp_path, monkeypatch):
+    """NUM_PROCESSES without PROCESS_ID raises the JAX package's ValueError
+    before anything is written."""
+    from object_keypoints_tpu.parallel import initialize_distributed
+
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "127.0.0.1:1234")
+    monkeypatch.setenv("NUM_PROCESSES", "2")
+    monkeypatch.delenv("PROCESS_ID", raising=False)
+    train_dir, val_dir = tree
+    with pytest.raises(ValueError) as want:
+        initialize_distributed()
+    with pytest.raises(ValueError) as got:
         train_cli.main(["--train", train_dir, "--val", val_dir, "--out", str(tmp_path), "--cpu"])
+    assert str(got.value) == str(want.value)
     assert not os.listdir(tmp_path)
 
 

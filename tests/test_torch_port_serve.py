@@ -163,6 +163,11 @@ def test_port_never_imports_jax(tmp_path):
         "from object_keypoints_tpu_torch.utils import config, metrics, progress, tb_events, vis\n"
         "from object_keypoints_tpu_torch.cli import eval_model, flagship, package_model, train\n"
         "from object_keypoints_tpu_torch.cli import detect, evaluate_detector, train_detector\n"
+        "from object_keypoints_tpu_torch import labeling, parallel\n"
+        "from object_keypoints_tpu_torch.parallel import mesh\n"
+        "from object_keypoints_tpu_torch.serving import sharded\n"
+        "from object_keypoints_tpu_torch.utils import clustering, ros, timer, Rate, Timing\n"
+        "from object_keypoints_tpu_torch.cli import import_checkpoint, label, show_keypoints\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'object_keypoints_tpu'))\n"
         "print(json.dumps(bad))\n"
