@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: serve, eval, train, int8, the detectors,
-multi-device serving and training.
+multi-device serving and training, the mesh's model axis.
 
     python3 chip_smoke.py
 
@@ -219,6 +219,26 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    is served here by ``load_inference_fn`` (one fp32 stem launch). Every
    child has a deadline and a group timeout; a failing or late child fails
    the phase.
+16. the mesh's model axis (``parallel.create_mesh(model_parallel=2)``,
+   ``parallel.shard_params``, ``serving.sharded`` at ``model_parallel=2``),
+   as the JAX package's multichip dry run drives it: (a) ``testing.rank_steps``
+   on a (data 2, model 2) grid of four gloo ranks sharing the card, the
+   full-width model (dropout 0; its 62 wide kernels sharded, the JAX
+   package's count) on phase 15's 8 frames, 4 a data row: one float32 step
+   (TF32 off) against phase 15's single-process step (loss rel 1e-6, the
+   unsharded gradient within 1e-2 of its norm, running statistics within 1e-4
+   of their largest, the unsharded weights within 1e-6 wherever the
+   single-process |g| clears 1e-4 and its tensor's largest gradient
+   difference), then bf16 steps with dropout 0.1: finite losses, the model
+   ranks of each row bit for bit equal, the step's ms beside phase 15's
+   world-1 step and bare step, and the all-gathers and all-reduces a step
+   with their bytes; (b) ``make_sharded_inference_fn`` in this process over
+   ["cuda:0"] * 4 at model_parallel=2 (2 rows x 2 shards) on phase 5's model,
+   float32 at 8 frames, against ``make_inference_fn`` (each map within 1e-4 x
+   max(1, max |map|)); (c) the same in bf16 at 96 frames (within 5e-2 x
+   max(1, max |map|)), pairs/s in turns with the single forward; (d) phase
+   15's int8 artifact by ``load_sharded_inference_fn`` over the same grid,
+   within 1e-3 of ``load_inference_fn``'s.
 
 The process's TF32 flags stay at torch's defaults: the port's entry points
 (``infer``, the train and eval steps) pin TF32 off themselves; phases 3 and
@@ -231,8 +251,9 @@ eval_steps), 10 (the loop's runs and the packaged models' serves), 11
 (the int8 serve steps and the int8 artifact's serve), 12 (the detectors'
 calls), 13 (the saccade's calls, the eval CLI's runs on the card) and 14
 (the eval CLI's run of the trained tiny detector; the train-mode stem runs
-on cuDNN) and 15 (the sharded serves and the serve of the two-rank loop's
-export; the child processes' launches are their own) each set the counts
+on cuDNN), 15 (the sharded serves and the serve of the two-rank loop's
+export; the child processes' launches are their own) and 16 (the serves
+over the model axis, one stem launch a data row) each set the counts
 to 0 before they run and read them after, and
 the kernels' line gives each kernel's launches from those runs. The int8 convolutions run on cuBLASLt's
 int8 GEMM, not on a kernel of this repository, so they are not in that line;
@@ -2523,7 +2544,10 @@ def phase_distributed(card, serve_step_pairs_per_sec, bare_step_ms):
     process group of one (NCCL, the launch contract, a child process)
     against the single-process step; (c) two ranks sharing the card over
     gloo, their step on 4 + 4 frames against the single-process step on the
-    8, then ``loop.fit`` over them and rank 0's export served here."""
+    8, then ``loop.fit`` over them and rank 0's export served here. Returns
+    the stem launches and what phase 16 steps and serves from: the batch,
+    the weights, the single-process float32 step, the step times and the
+    int8 scales."""
     from object_keypoints_tpu_torch.parallel import create_mesh
     from object_keypoints_tpu_torch.serving.calibration import calibration_batches
     from object_keypoints_tpu_torch.serving.export import (
@@ -2694,6 +2718,210 @@ def phase_distributed(card, serve_step_pairs_per_sec, bare_step_ms):
                   "within 1e-4 of its tensor's largest",
         stem_launches=launches, int8_stem_launches=int8_launches,
         export_stem_launches=export_launches, phase_s=time.perf_counter() - phase_t0, card=card)
+    return launches, dict(batch=batch, init=init, want_step=want_step, scales=scales,
+                          group_step_ms=one["runs"][1]["step_ms"], bare_step_ms=bare_ms)
+
+
+GRID_MODEL_PARALLEL = 2  # a (data 2, model 2) grid: four gloo ranks share the card
+GRID_WARM, GRID_TIMED = 2, 2  # bf16 steps with dropout 0.1: recorded, then timed
+GRID_LOSS_RTOL = 1e-6
+GRID_BIAS_SLACK = 1e-5  # float32 bias corrections move Adam's g / (|g| + eps) by < 7e-6 of itself
+GRID_UPDATE_SLACK = 1e-6  # x lr: the update's own float32 roundings, a few 6e-8 of it
+AXIS_FLOAT_ATOL = 1e-4  # sharded float32 serve vs single, x max(1, max |single|) of each map
+AXIS_BF16_ATOL = 5e-2  # sharded bf16 serve vs single, likewise
+
+
+def is_buffer(key):
+    return key.rsplit(".", 1)[-1] in ("running_mean", "running_var", "num_batches_tracked")
+
+
+def grid_step_against(what, run, want):
+    """The grid's float32 step (its first run, unsharded) against the
+    single-process step: ``step_against``'s gates with the loss at rel 1e-6,
+    and every weight after the step within the bound that the two gradients
+    set on it. Adam's first step (no clip, scale 1) moves a weight w by
+    -lr * (f(g) + wd * w) with f(g) = g / (|g| + eps), so two steps from one
+    w part by lr * |f(g) - f(g')|: at most lr * eps * |g - g'| / (min(|g|,
+    |g'|) + eps)^2 where g and g' share a sign (f's slope on that interval),
+    and at most lr * (|f(g)| + |f(g')|) everywhere: a sign that float32
+    noise flips parts them by up to 2 lr, as the JAX package's
+    TestShardedTraining notes. Each bound is widened by GRID_BIAS_SLACK of itself, by
+    GRID_UPDATE_SLACK * lr and by one float32 rounding of each weight. The
+    whole weights' relative error is printed, not gated."""
+    from object_keypoints_tpu_torch.training.trainer import AdamWPlateau
+
+    fields = step_against(what, run, want)
+    _, grads, sd = want
+    eps, rounding = AdamWPlateau.eps, torch.finfo(torch.float32).eps
+    names = [k for k in sd if not is_buffer(k)]
+    worst = tight = total = 0
+    worst_abs = 0.0
+    for k, g, mine in zip(names, grads, run["grads"]):
+        g, mine = g.double(), mine.double()
+        w, w_mine = sd[k].double(), run["state_dict"][k].double()
+        loose = g.abs() / (g.abs() + eps) + mine.abs() / (mine.abs() + eps)
+        slope = eps * (g - mine).abs() / (torch.minimum(g.abs(), mine.abs()) + eps).square()
+        same = g * mine > 0
+        bound = torch.where(same, torch.minimum(loose, slope), loose)
+        tight += int((same & (slope < loose)).sum())
+        total += g.numel()
+        bound = (TRAIN_LR * ((1 + GRID_BIAS_SLACK) * bound + GRID_UPDATE_SLACK)
+                 + rounding * torch.maximum(w.abs(), w_mine.abs()))
+        diff = (w_mine - w).abs()
+        worst = max(worst, (diff / bound).max().item())
+        worst_abs = max(worst_abs, diff.max().item())
+    whole = (sum((run["state_dict"][k].double() - sd[k].double()).square().sum() for k in names)
+             / sum(sd[k].double().square().sum() for k in names)).sqrt().item()
+    fields.update(weights_worst_over_bound=worst, weights_max_abs=worst_abs,
+                  weights_share_slope_bound=tight / total, weights_rel=whole)
+    assert fields["loss_rel"] <= GRID_LOSS_RTOL and worst <= 1.0, (what, fields)
+    return fields
+
+
+def map_errors(got, want):
+    """Each map's largest |got - want| over max(1, max |want|)."""
+    return [((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
+            for g, w in zip(got, want)]
+
+
+def phase_model_axis(card, inputs):
+    """The mesh's model axis on the card, as the JAX package's multichip dry
+    run drives it: (a) the train step of the full-width model over a (data 2,
+    model 2) grid of four gloo ranks sharing the card (62 kernels sharded),
+    float32 against phase 15's single-process step, then bf16 steps with
+    dropout; (b) the sharded serve in one process over ["cuda:0"] * 4 at
+    model_parallel 2, float32 at 8 frames against the single-device serve;
+    (c) the same in bf16 at 96 frames, pairs/s in turns with the single
+    forward; (d) phase 15's int8 artifact served over the model axis."""
+    from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet
+    from object_keypoints_tpu_torch.parallel import device_mesh, model_sharded_paths, wide_convs
+    from object_keypoints_tpu_torch.serving.export import (
+        export_model,
+        load_inference_fn,
+        make_inference_fn,
+    )
+    from object_keypoints_tpu_torch.serving.sharded import (
+        load_sharded_inference_fn,
+        make_sharded_inference_fn,
+    )
+
+    phase_t0 = time.perf_counter()
+    launches = {k: 0 for k in stem_counts()}
+
+    def counted(fn):
+        reset_stem_counts()  # a counted run starts here
+        out = fn()
+        for k, v in stem_counts().items():  # ... and ends here
+            launches[k] += v
+        return out
+
+    m = GRID_MODEL_PARALLEL
+    devices = ["cuda:0"] * 2 * m
+    n_sharded = len(model_sharded_paths(KeypointNet(**MODEL), device_mesh(devices, m)))
+
+    # (a) the train step over the grid
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [dict(dtype="float32", optimizer=dict(lr=TRAIN_LR), batches=[inputs["batch"]]),
+                dict(dtype="bfloat16", optimizer=dict(lr=TRAIN_LR), model=dict(dropout=0.1),
+                     batches=[inputs["batch"]] * (GRID_WARM + GRID_TIMED), warm=GRID_WARM)]
+        ranks, grid_s = rank_launch("steps", dict(model=dict(MODEL, dropout=0.0),
+                                                  state_dict=inputs["init"], device="cuda",
+                                                  backend="gloo", timeout=DIST_GROUP_TIMEOUT,
+                                                  model_parallel=m, runs=runs), 2 * m, tmp)
+    assert [(o["data_rank"], o["model_rank"]) for o in ranks] == [(r // m, r % m)
+                                                                  for r in range(2 * m)]
+    steps = [grid_step_against(f"rank {o['rank']} of the (2, {m}) grid", o["runs"][0],
+                               inputs["want_step"]) for o in ranks]
+    for o in ranks:
+        losses = [x["loss"] for x in o["runs"][1]["metrics"]]
+        assert all(math.isfinite(x) for x in losses), losses
+    row_equal = []
+    for r in range(0, 2 * m, m):
+        first = ranks[r]["runs"][1]["state_dict"]
+        for o in ranks[r + 1:r + m]:
+            for k, v in first.items():
+                assert torch.equal(v, o["runs"][1]["state_dict"][k]), (o["rank"], k)
+        row_equal.append(True)
+    rows_agree = all(torch.equal(v, ranks[m]["runs"][1]["state_dict"][k])
+                     for k, v in ranks[0]["runs"][1]["state_dict"].items())
+    bf16 = ranks[0]["runs"][1]
+    torch.cuda.empty_cache()
+
+    # (b) the sharded serve in float32, one process: 2 data rows x 2 shards
+    model = make_model()
+    single = make_inference_fn(copy.deepcopy(model), device="cuda")
+    shard = make_sharded_inference_fn(model, devices=devices, model_parallel=m)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    frames = torch.randn(2 * PAIRS, 3, 511, 511, generator=gen).to("cuda")
+    small = frames[:EVAL_BATCH].contiguous()
+    want = single(small)
+    got = counted(lambda: shard(small))
+    float_err = map_errors(got, want)
+    for g in got:
+        assert g.device == torch.device("cuda", 0) and torch.isfinite(g).all()
+    assert max(float_err) <= AXIS_FLOAT_ATOL, float_err
+    float_launches = dict(launches)
+    assert float_launches == {"all": 2, "stem_conv_bf16": 0, "stem_conv_fp32": 2}, float_launches
+    del single, shard
+    torch.cuda.empty_cache()
+
+    # (c) the same grid in bf16 at phase 5's 96 frames
+    single = make_inference_fn(copy.deepcopy(model), dtype=torch.bfloat16, device="cuda")
+    shard = make_sharded_inference_fn(model, devices=devices, dtype=torch.bfloat16,
+                                      model_parallel=m)
+    frames = frames.to(torch.bfloat16)
+    want = single(frames)
+    got = counted(lambda: shard(frames))
+    bf16_err = map_errors(got, want)
+    for g in got:
+        assert torch.isfinite(g).all()
+    assert max(bf16_err) <= AXIS_BF16_ATOL, bf16_err
+    single_pps = [serve_pairs_per_sec(single, frames, SHARD_TIMED)]
+    shard_pps = counted(lambda: [serve_pairs_per_sec(shard, frames, SHARD_TIMED)
+                                 for _ in range(2)])
+    single_pps.append(serve_pairs_per_sec(single, frames, SHARD_TIMED))
+    splits = sum(1 for _ in wide_convs(model, m))
+    del single, shard, frames
+    torch.cuda.empty_cache()
+
+    # (d) phase 15's int8 artifact over the model axis
+    with tempfile.TemporaryDirectory() as tmp:
+        export_model(f"{tmp}/int8", {**MODEL, "input_size": 511,
+                                     "keypoint_config": list(KEYPOINT_CONFIG)}, model,
+                     quant_scales=inputs["scales"])
+        want8 = load_inference_fn(f"{tmp}/int8", device="cuda")(small)
+        before = dict(launches)
+        got8 = counted(lambda: load_sharded_inference_fn(f"{tmp}/int8", devices=devices,
+                                                         model_parallel=m)(small))
+    int8_launches = {k: launches[k] - before[k] for k in launches}
+    assert int8_launches["stem_conv_fp32"] == 2, int8_launches
+    int8_err = [(g - w).abs().max().item() for g, w in zip(got8, want8)]
+    for g in got8:
+        assert torch.isfinite(g).all()
+    assert max(int8_err) <= INT8_SHARD_ATOL, int8_err
+    del model
+    torch.cuda.empty_cache()
+
+    log("model_axis", grid=dict(data=2, model=m), model_sharded_kernels=n_sharded,
+        jax_model_sharded_kernels=62, batch=DIST_BATCH,
+        grid_float32=steps, grid_launch_s=grid_s,
+        grid_bf16=dict(dropout=0.1, losses=[x["loss"] for x in bf16["metrics"]],
+                       model_ranks_bit_equal=row_equal, rows_bit_equal=rows_agree,
+                       step_ms=bf16["step_ms"],
+                       collectives_per_step=bf16["collectives_per_step"]),
+        group_step_ms_phase15=inputs["group_step_ms"], bare_step_ms_phase15=inputs["bare_step_ms"],
+        serve_devices=devices, serve_wide_convs_split=splits,
+        float32_vs_single=float_err, float32_atol=AXIS_FLOAT_ATOL,
+        bf16_vs_single=bf16_err, bf16_atol=AXIS_BF16_ATOL,
+        sharded_pairs_per_sec=shard_pps, single_pairs_per_sec=single_pps,
+        int8_vs_single=int8_err, int8_atol=INT8_SHARD_ATOL,
+        tolerance="grid float32 step: loss rel 1e-6, the whole gradient within 1e-2 of its norm, "
+                  "each running statistic within 1e-4 of its tensor's largest, every weight within "
+                  "Adam's first-step bound from the two gradients (grid_step_against); serves: "
+                  "each map's largest difference over max(1, max |single|)",
+        stem_launches=launches, int8_stem_launches=int8_launches,
+        phase_s=time.perf_counter() - phase_t0, card=card)
+    assert n_sharded == 62, n_sharded
     return launches
 
 
@@ -2713,7 +2941,9 @@ def main():
     paths.append(phase_saccade(card))
     paths.append(phase_detector_eval(card))
     paths.append(phase_detector_train(card))
-    paths.append(phase_distributed(card, serve_pps, bare_step_ms))
+    dist_launches, axis_inputs = phase_distributed(card, serve_pps, bare_step_ms)
+    paths.append(dist_launches)
+    paths.append(phase_model_axis(card, axis_inputs))
     assert "jax" not in sys.modules, "the port imported jax"
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}

@@ -12,7 +12,7 @@ Precision follows the JAX package's ``dtype`` rule (``precision``): the
 parameters and BatchNorm statistics stay float32 and a block computes in
 its input's dtype. ``Conv2d`` and ``ConvTranspose2d`` cast their weights to
 it; ``BatchNorm2d`` is flax's BatchNorm (momentum 0.9, eps 1e-5, the biased
-batch variance folded into the running one), over the whole group's batch
+batch variance folded into the running one), over the data group's batch
 when a process group is initialized (``parallel``).
 """
 
@@ -79,9 +79,11 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     Where a process group is initialized (``parallel.initialize_distributed``,
     at world size 1 too) train mode takes flax's global view of the batch
-    across the ranks, as the JAX package's BatchNorm does over a mesh: each
-    rank sums its channels' values and squares and counts them, one
-    differentiable all-reduce adds them up, and the variance is
+    across the data group (the ranks of this rank's model column, the whole
+    group without a (data, model) grid), as the JAX package's BatchNorm does
+    over a mesh: each rank sums its channels' values and squares and counts
+    them, one differentiable all-reduce over the data group adds them up
+    (the ranks of a data row hold the same activations), and the variance is
     E[x^2] - E[x]^2 of the whole batch, flax's formula; that biased variance
     goes into ``running_var``, so every rank keeps the same statistics. The
     sums accumulate in float64 whatever the input's dtype: that formula
@@ -117,7 +119,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         f64 = torch.float64
         local = torch.cat([xf.sum((0, 2, 3), dtype=f64), xf.square().sum((0, 2, 3), dtype=f64),
                            xf.new_full((1,), x.numel() // c, dtype=f64)])
-        total = parallel.all_reduce_autograd(local)
+        total = parallel.all_reduce_autograd(local, parallel.data_group())
         count = total[2 * c].detach()
         mean = total[:c] / count
         var = torch.clamp(total[c:2 * c] / count - mean.square(), min=0.0)

@@ -47,6 +47,7 @@ from torch import nn
 
 from object_keypoints_tpu_torch.models.blocks import StemConvBlock
 from object_keypoints_tpu_torch.ops.int8_conv import (
+    ALIGN,
     int8_conv2d,
     int8_conv_transpose2d,
     pack_conv2d_weight,
@@ -263,6 +264,40 @@ class Int8Conv(nn.Module):
             self.register_buffer("in_scale_inv", inv, persistent=False)
         else:
             self.in_scale_inv = inv
+
+    def output_shard(self, index: int, count: int) -> "Int8Conv":
+        """Output channels [index * o, (index + 1) * o) of this conv, o =
+        out / count (the mesh's ``model`` axis), as an Int8Conv of their
+        own: the packed int8 weights, the per-output-channel rescale, the
+        bias and the float weight sliced. Each channel keeps the codes and
+        the scale that the whole conv made from the whole weight, and the
+        input's scale is the whole conv's. o must be a multiple of 8, the
+        int8 GEMM's width rule."""
+        o = self.out_channels // count
+        if self.out_channels % count or o % ALIGN:
+            raise ValueError(f"Int8Conv {self.path!r}: {self.out_channels} output channels do not "
+                             f"split into {count} shards of a multiple of {ALIGN}")
+        lo = index * o
+        shard = Int8Conv.__new__(Int8Conv)
+        nn.Module.__init__(shard)
+        for name in ("transpose", "path", "scale", "groups", "kernel_size", "stride", "padding",
+                     "in_channels"):
+            setattr(shard, name, getattr(self, name))
+        shard.out_channels = o
+
+        def part(t, dim=0):
+            return nn.Parameter(t.detach().narrow(dim, lo, o).clone(), requires_grad=t.requires_grad)
+
+        shard.weight = part(self.weight, 1 if self.transpose else 0)
+        shard.bias = None if self.bias is None else part(self.bias)
+        packed = self.packed[:, lo:lo + o] if self.transpose else self.packed[lo:lo + o]
+        shard.register_buffer("packed", packed.contiguous(), persistent=False)
+        shard.register_buffer("rescale", self.rescale[lo:lo + o].clone(), persistent=False)
+        if "in_scale_inv" in self._buffers:
+            shard.register_buffer("in_scale_inv", self.in_scale_inv, persistent=False)
+        else:
+            shard.in_scale_inv = self.in_scale_inv
+        return shard
 
     def int8_weight(self):
         """The int8 weight in the float module's layout."""

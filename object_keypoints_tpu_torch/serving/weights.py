@@ -240,6 +240,21 @@ def conv_module_paths(stacks: int = 2, levels: int = 4,
             for key, _, path, kind in entries if kind in ("conv", "conv_t")}
 
 
+def keypoint_net_param_shapes(state_dict: Mapping, stacks: int = 2, levels: int = 4,
+                              mods: Sequence[int] = (2, 2, 2, 2, 4)) -> Dict[tuple, tuple]:
+    """flax params path -> flax shape of every parameter of a port
+    KeypointNet ``state_dict``, in the walk's order: a conv weight (O, I,
+    kH, kW) is the kernel (kH, kW, I, O), a ConvTranspose weight (I, O, kH,
+    kW) the kernel (kH, kW, I, O)."""
+    order = {"conv": (2, 3, 1, 0), "conv_t": (2, 3, 0, 1)}
+    out = {}
+    for key, collection, path, kind in _NameMap().keypoint_net(stacks, levels, mods).entries:
+        if collection == "params":
+            shape = tuple(state_dict[key].shape)
+            out[path] = tuple(shape[i] for i in order[kind]) if kind in order else shape
+    return out
+
+
 def keypoint_net_state_dict(variables: Mapping, stacks: int = 2, levels: int = 4,
                             mods: Sequence[int] = (2, 2, 2, 2, 4)) -> Dict[str, torch.Tensor]:
     """JAX KeypointNet variables -> a state_dict for the port's KeypointNet."""

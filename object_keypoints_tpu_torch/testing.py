@@ -28,6 +28,7 @@
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import socket
@@ -342,21 +343,25 @@ def _rank_device(spec: dict):
     return parallel.initialize_distributed(spec.get("backend"), spec["device"], spec["timeout"])
 
 
-def _steps(spec: dict, run: dict, device) -> dict:
+def _steps(spec: dict, run: dict, device, mesh) -> dict:
     """One run of ``rank_steps``: a fresh train state from the spec's
-    weights, then a step on this rank's slice of each of ``run["batches"]``."""
+    weights (sharded over ``mesh``'s model axis), then a step on this rank's
+    data row's slice of each of ``run["batches"]``."""
     from object_keypoints_tpu_torch import parallel
     from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet
     from object_keypoints_tpu_torch.training import trainer
 
     dtype = getattr(torch, run.get("dtype", "float32"))
-    model = KeypointNet(**spec["model"])
+    model = KeypointNet(**{**spec["model"], **run.get("model", {})})
     model.load_state_dict(spec["state_dict"])
     if dtype == torch.float64:
         model.double()
+    parallel.shard_params(model, mesh)
     state = trainer.create_train_state(model, trainer.make_optimizer(**run["optimizer"]), dtype,
                                        device)
-    generator = torch.Generator(device=device).manual_seed(run.get("seed", 0) + 1009 * parallel.rank())
+    # the ranks of a data row draw the same dropout mask: their activations are one replica's
+    generator = torch.Generator(device=device).manual_seed(
+        run.get("seed", 0) + 1009 * parallel.data_rank())
     out = {"metrics": [], "lr_scale": []}
     warm = run.get("warm", len(run["batches"]))
     for i, batch in enumerate(run["batches"]):
@@ -364,21 +369,28 @@ def _steps(spec: dict, run: dict, device) -> dict:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
+            calls = collections.Counter(parallel.COLLECTIVES)
         loss, metrics, grads = trainer.loss_and_grads(state, parallel.batch_sharding(batch),
                                                       generator)
         if i == 0:
-            out["grads"] = [g.detach().cpu() for g in grads]
+            out["grads"] = [g.cpu() for g in parallel.unshard_like_parameters(model, grads)]
         trainer.apply_gradients(state, grads, loss)
+        if i == 0 and run.get("moments"):
+            out["mu"] = [m.cpu() for m in parallel.unshard_like_parameters(model,
+                                                                           state.opt_state.mu)]
         if i < warm:
             out["metrics"].append({k: v.item() for k, v in metrics.items()})
             out["lr_scale"].append(state.lr_scale.item())
     if warm < len(run["batches"]):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        out["step_ms"] = 1e3 * (time.perf_counter() - t0) / (len(run["batches"]) - warm)
+        timed = len(run["batches"]) - warm
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0) / timed
+        out["collectives_per_step"] = {k: (v - calls[k]) / timed
+                                       for k, v in parallel.COLLECTIVES.items()}
     eval_metrics = trainer.eval_step(state, parallel.batch_sharding(run["batches"][0]))
     out["eval"] = {k: v.item() for k, v in eval_metrics.items()}
-    out["state_dict"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out["state_dict"] = {k: v.detach().cpu() for k, v in parallel.unshard(model).items()}
     return out
 
 
@@ -386,21 +398,28 @@ def rank_steps(spec_path: str, out_path: str) -> None:
     """A rank's part of train steps over a process group: ``spec`` (a
     ``torch.save``d dict) holds the KeypointNet's arguments (``model``), its
     weights (``state_dict``), the ``device``, ``backend`` and ``timeout``,
-    and ``runs``, each with its ``optimizer`` arguments, ``dtype`` and global
-    ``batches`` (numpy dicts; a rank steps on its slice), and optionally
-    ``warm``: the steps after the first ``warm`` are timed, not recorded.
-    Writes ``out_path.<rank>``: per run the metrics and ``lr_scale`` after
-    each step, the first step's gradients, ``eval_step``'s metrics on the
-    rank's slice of the first batch after the steps, the final weights and
-    buffers."""
+    optionally ``model_parallel`` (the (data, model) grid's model axis, 1 by
+    default), and ``runs``, each with its ``optimizer`` arguments, ``dtype``,
+    global ``batches`` (numpy dicts; a rank steps on its data row's slice)
+    and optionally ``model`` (arguments over the spec's), ``moments`` (record
+    Adam's first moment after the first step) and ``warm``: the steps after
+    the first ``warm`` are timed, with their collectives a step
+    (``parallel.COLLECTIVES``), not recorded. Writes ``out_path.<rank>``: per
+    run the metrics and ``lr_scale`` after each step, the first step's
+    gradients, ``eval_step``'s metrics on the rank's slice of the first batch
+    after the steps, the final weights and buffers, the sharded ones gathered
+    whole (``parallel.unshard``)."""
     from object_keypoints_tpu_torch import parallel
 
     spec = torch.load(spec_path, weights_only=False)
     device = _rank_device(spec)
     try:
-        runs = [_steps(spec, run, device) for run in spec["runs"]]
-        torch.save({"rank": parallel.rank(), "world": parallel.world_size(), "runs": runs},
-                   f"{out_path}.{parallel.rank()}")
+        devices = [device] * parallel.world_size() if device.type == "cpu" else None
+        mesh = parallel.create_mesh(devices, spec.get("model_parallel", 1))
+        runs = [_steps(spec, run, device, mesh) for run in spec["runs"]]
+        torch.save({"rank": parallel.rank(), "world": parallel.world_size(),
+                    "data_rank": parallel.data_rank(), "model_rank": parallel.model_rank(),
+                    "runs": runs}, f"{out_path}.{parallel.rank()}")
     finally:
         parallel.destroy_distributed()
 

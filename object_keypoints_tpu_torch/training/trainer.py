@@ -24,14 +24,19 @@ distance between the last stack's sigmoid heatmap and its target.
   w, K), centers (N, h, w, T, 2). The step permutes them to NCHW views.
 - **Randomness** (dropout) comes from an explicit ``torch.Generator`` on
   the model's device.
-- **Over a process group** (``parallel``) each rank steps on its slice of
-  the global batch: BatchNorm takes the global statistics, one all-reduce a
-  step averages the gradients (``grad_norm`` is the averaged gradients'),
-  and the metrics are the JAX global step's: the loss and the heatmap losses
-  the mean over the ranks, the depth and center losses (sums over the
+- **Over a process group** (``parallel``) each rank steps on its data
+  row's slice of the global batch: BatchNorm takes the global statistics,
+  one all-reduce a step over the data group averages the gradients, and the
+  metrics are the JAX global step's: the loss and the heatmap losses the
+  mean over the data rows, the depth and center losses (sums over the
   batch, the reference's unnormalized log) their sum. The plateau schedule
   sees the global loss, so every rank keeps the same ``lr_scale`` and the
-  same weights.
+  same weights. Over a (data, model) grid (``parallel.shard_params``) a
+  shard's gradient is its slice of the whole gradient and needs no
+  reduction over the model group; a replicated parameter's is the same on
+  every rank of a data row. ``grad_norm`` and the clip take the norm of the
+  whole gradient: a shard's squares summed over the model group, a
+  replicated tensor counted once.
 
 The train state holds the model itself: its parameters and its BatchNorm
 running statistics (the JAX state's ``params`` and ``batch_stats``), updated
@@ -127,10 +132,12 @@ class AdamWPlateau:
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: OptState,
-             value: torch.Tensor) -> None:
-        """Update ``params`` in place from ``grads`` and this step's loss."""
+             value: torch.Tensor, sharded: Optional[List[bool]] = None) -> None:
+        """Update ``params`` in place from ``grads`` and this step's loss;
+        ``sharded`` marks the shards of a (data, model) grid, for the clip's
+        norm (``global_norm``)."""
         if self.grad_clip:
-            norm = global_norm(grads)
+            norm = global_norm(grads, sharded)
             grads = torch._foreach_mul(grads, torch.where(norm < self.grad_clip, 1.0,
                                                           self.grad_clip / norm))
         b1, b2 = self.b1, self.b2
@@ -170,21 +177,34 @@ def make_optimizer(lr: float = 4e-3, weight_decay: float = 0.01, plateau_factor:
                         plateau_accumulation, grad_clip)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax's global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: List[torch.Tensor], sharded: Optional[List[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax's global_norm).
+    Where ``sharded`` marks a tensor as this rank's shard of a whole one
+    (``parallel.sharded_mask``), it is the norm of the whole tensors: the
+    shards' squares summed over the model group, the rest counted once."""
+    norms = torch._foreach_norm(tensors)
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    shards = torch.stack([n for n, s in zip(norms, sharded) if s]).square().sum().reshape(1)
+    total = parallel.all_reduce(shards, parallel.model_group())[0]
+    rest = [n for n, s in zip(norms, sharded) if not s]
+    if rest:
+        total = total + torch.stack(rest).square().sum()
+    return total.sqrt()
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BatchNorm running statistics), the
-    optimizer and its state, the compute dtype, and the count of steps."""
+    optimizer and its state, the compute dtype, the count of steps, and
+    which parameters are shards of a (data, model) grid (None: none)."""
 
     model: torch.nn.Module
     tx: AdamWPlateau
     opt_state: OptState
     dtype: torch.dtype = torch.float32
     step: int = 0
+    sharded: Optional[List[bool]] = None
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -210,7 +230,9 @@ def create_train_state(model: torch.nn.Module, tx: AdamWPlateau, dtype=torch.flo
     layout cuDNN's tensor-core convolutions take; on the CPU they stay
     contiguous: torch's CPU backward of a strided 1x1 convolution over a few
     channels_last channels corrupts the heap (torch 2.13, 4 and 8
-    channels)."""
+    channels). A model sharded over a (data, model) grid
+    (``parallel.shard_params``) is sharded before this: the optimizer state
+    lives on the shards."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"create_train_state: device {str(device)!r} asked for, but CUDA "
@@ -218,7 +240,7 @@ def create_train_state(model: torch.nn.Module, tx: AdamWPlateau, dtype=torch.flo
     layout = torch.channels_last if device.type == "cuda" else torch.contiguous_format
     model.to(device=device, memory_format=layout)
     return TrainState(model=model, tx=tx, opt_state=tx.init(list(model.parameters())),
-                      dtype=dtype)
+                      dtype=dtype, sharded=parallel.sharded_mask(model))
 
 
 def to_device(batch: dict, device) -> dict:
@@ -266,15 +288,16 @@ def _summed(name: str) -> bool:
 
 def reduce_metrics(metrics: dict, extra=()) -> dict:
     """``metrics`` (device scalars) as the global step computes them over
-    the process group: sums for the depth and center losses, means for the
+    the data group: sums for the depth and center losses, means for the
     rest; ``extra`` tensors are averaged in the same all-reduce, in place."""
     names = sorted(metrics)
     extra = list(extra)
     dtype = extra[0].dtype if extra else metrics[names[0]].dtype
     stacked = torch.stack([metrics[k].to(dtype) for k in names])
-    parallel.all_reduce_([*extra, stacked], mean=[True] * len(extra) + [False])
-    world = parallel.world_size()
-    return {k: (v if _summed(k) else v / world).to(metrics[k].dtype)
+    parallel.all_reduce_([*extra, stacked], mean=[True] * len(extra) + [False],
+                         group=parallel.data_group())
+    rows = parallel.data_size()
+    return {k: (v if _summed(k) else v / rows).to(metrics[k].dtype)
             for k, v in zip(names, stacked)}
 
 
@@ -284,7 +307,8 @@ def loss_and_grads(state: TrainState, batch: dict, generator: Optional[torch.Gen
     gradients of ``state.params``); the BatchNorm running statistics are
     updated. ``metrics["grad_norm"]`` is the global norm of the gradients.
     Over a process group the loss, the metrics and the gradients are the
-    global batch's (one all-reduce)."""
+    global batch's (one all-reduce over the data group); over a (data,
+    model) grid a shard's gradient is its slice of the whole one."""
     batch = to_device(batch, state.device)
     params = state.params
     with no_tf32():
@@ -294,13 +318,13 @@ def loss_and_grads(state: TrainState, batch: dict, generator: Optional[torch.Gen
     if parallel.is_distributed():
         metrics = reduce_metrics(metrics, grads)
         loss = metrics["loss"]
-    metrics["grad_norm"] = global_norm(grads)
+    metrics["grad_norm"] = global_norm(grads, state.sharded)
     return loss.detach(), metrics, grads
 
 
 def apply_gradients(state: TrainState, grads: List[torch.Tensor], loss: torch.Tensor) -> TrainState:
     """The optimizer's update of ``state.params`` with this step's loss."""
-    state.tx.step(state.params, grads, state.opt_state, loss)
+    state.tx.step(state.params, grads, state.opt_state, loss, state.sharded)
     state.step += 1
     return state
 

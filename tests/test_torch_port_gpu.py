@@ -16,6 +16,7 @@ CPU decode and to the float64 lift of its own pixels as
 """
 
 import contextlib
+import copy
 import pathlib
 import threading
 
@@ -1112,3 +1113,59 @@ def test_train_detector_cli_on_card_writes_what_the_eval_cli_reads(cuda, tmp_pat
                                   "--result-dir", str(tmp_path / "results")])
     assert "loading parameters at iteration: 6" in capsys.readouterr().out
     assert 0.0 <= out["mAP"] <= 1.0
+
+
+def _wide_conv(kind):
+    from object_keypoints_tpu_torch.models import blocks
+
+    torch.manual_seed(0)
+    return {"conv3x3": (blocks.Conv2d(64, 256, 3, padding=1, bias=False), 64),
+            "depthwise": (blocks.Conv2d(256, 256, 3, padding=1, groups=256, bias=False), 256),
+            "conv_transpose": (blocks.ConvTranspose2d(256, 256, 4, stride=2, padding=1), 256)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["conv3x3", "depthwise", "conv_transpose"])
+def test_sharded_conv_on_card_matches_cpu(cuda, kind):
+    """A wide conv split over two shards on the card (the model axis in one
+    process) against the whole conv on the CPU, float32 with TF32 off:
+    output, input gradient and each shard's weight gradient within 1e-4."""
+    from object_keypoints_tpu_torch.parallel.tensor import sharded_dim
+    from object_keypoints_tpu_torch.serving.sharded import DeviceShardedConv
+
+    conv, cin = _wide_conv(kind)
+    split = DeviceShardedConv(conv, [cuda, cuda])
+    x = torch.randn(2, cin, 16, 16, requires_grad=True)
+    y = conv(x)
+    g = torch.randn_like(y)
+    gx, gw = torch.autograd.grad(y, (x, conv.weight), g)
+    xc = x.detach().to(cuda).contiguous(memory_format=torch.channels_last).requires_grad_()
+    yc = split(xc)
+    assert yc.device.type == "cuda" and yc.is_contiguous(memory_format=torch.channels_last)
+    gxc, *gws = torch.autograd.grad(yc, [xc] + [s.weight for s in split.shards], g.to(cuda))
+    torch.testing.assert_close(yc.cpu(), y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(gxc.cpu(), gx, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(torch.cat(gws, sharded_dim(conv)).cpu(), gw, atol=1e-4, rtol=1e-4)
+
+
+def test_model_axis_serve_on_card_matches_single(cuda):
+    """make_sharded_inference_fn over ["cuda:0"] * 2 at model_parallel=2 (one
+    replica, its 28 wide convs split in two) against make_inference_fn on
+    the card, float32 with TF32 off: every map within 1e-4, one fp32 stem
+    launch a call."""
+    from object_keypoints_tpu_torch.serving.export import make_inference_fn
+    from object_keypoints_tpu_torch.serving.sharded import make_sharded_inference_fn
+
+    model = KeypointNet(heatmaps_out=3, features=8, stacks=2, levels=2, dims=(256, 256, 512),
+                        mods=(1, 1, 1), stem_features=(8, 256), cnv_dim=256,
+                        generator=torch.Generator().manual_seed(0))
+    frames = torch.randn(4, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    single = make_inference_fn(copy.deepcopy(model), device=cuda)
+    split = make_sharded_inference_fn(model, devices=["cuda:0"] * 2, model_parallel=2)
+    want = single(frames)
+    before = stem_conv.launches_fp32
+    got = split(frames)
+    torch.cuda.synchronize()
+    assert stem_conv.launches_fp32 == before + 1
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
