@@ -24,6 +24,7 @@ from torch import nn
 
 from object_keypoints_tpu_torch import parallel
 from object_keypoints_tpu_torch.ops.stem_conv import fold_bn, stem_conv
+from object_keypoints_tpu_torch.utils import timer
 
 MOMENTUM = 0.9  # flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 
@@ -34,7 +35,8 @@ def in_dtype(module, dtype):
     otherwise it is kept on the module until the weights change (another
     storage or an in-place write, seen by the version counter), so a serving
     forward casts once and not once a call. An inference tensor has no
-    version counter, so its cast is made on every call."""
+    version counter, so its cast is made on every call. A cast made outside
+    autograd's graph counts in ``weights.built`` (``utils.timer``)."""
     w, b = module.weight, module.bias
     if w.dtype == dtype:
         return w, b
@@ -42,12 +44,16 @@ def in_dtype(module, dtype):
     def cast():
         return w.to(dtype), None if b is None else b.to(dtype)
 
-    if (torch.is_grad_enabled() and w.requires_grad) or w.is_inference():
+    if torch.is_grad_enabled() and w.requires_grad:
+        return cast()
+    if w.is_inference():
+        timer.count("weights.built")
         return cast()
     key = (w.data_ptr(), w._version, None if b is None else (b.data_ptr(), b._version), dtype,
            torch.is_inference_mode_enabled())
     cached = getattr(module, "_cast", None)
     if cached is None or cached[0] != key:
+        timer.count("weights.built")
         cached = module._cast = (key, cast())
     return cached[1]
 

@@ -24,6 +24,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from object_keypoints_tpu_torch.utils import timer
+
 H, W = 2, 3
 
 
@@ -55,21 +57,24 @@ def scan_max(x, dim):
 
 
 class _CumMax(torch.autograd.Function):
-    """torch.cummax forward, JAX's associative-scan backward."""
+    """torch.cummax forward, JAX's associative-scan backward; the spans
+    ``corner_pool.forward`` and ``corner_pool.backward`` (``utils.timer``; a
+    CUDA backward runs on autograd's own thread)."""
 
     @staticmethod
     def forward(ctx, x, dim, reverse):
         ctx.save_for_backward(x)
         ctx.dim, ctx.reverse = dim, reverse
-        if reverse:
-            return torch.cummax(x.flip(dim), dim)[0].flip(dim)
-        return torch.cummax(x, dim)[0]
+        with timer.span("corner_pool.forward"):
+            if reverse:
+                return torch.cummax(x.flip(dim), dim)[0].flip(dim)
+            return torch.cummax(x, dim)[0]
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
         dim, reverse = ctx.dim, ctx.reverse
-        with torch.enable_grad():
+        with timer.span("corner_pool.backward"), torch.enable_grad():
             xd = x.detach().requires_grad_()
             y = scan_max(xd.flip(dim), dim).flip(dim) if reverse else scan_max(xd, dim)
             (gx,) = torch.autograd.grad(y, xd, grad)

@@ -27,6 +27,11 @@ or raises. The plain versions (``F.conv2d`` / ``F.conv_transpose2d`` in
 float64 on the integer-valued tensors, rounded back to int32; exact, since
 every sum stays far below 2^53) run for CPU tensors and in the tests.
 
+Spans (``utils.timer``): ``int8.im2col`` over each gather of columns (and
+the padding before them), ``int8.mm`` over each GEMM, ``int8.rescale`` over
+the ConvTranspose's phase interleave (the rest of that pass is
+``serving.quantize.Int8Conv``'s).
+
 Layouts: activations NHWC int8 (the memory of a channels_last NCHW tensor),
 accumulators NHWC int32; unpacked weights in torch's layouts, (O, I, kH, kW)
 and (I, O, kH, kW).
@@ -36,6 +41,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from object_keypoints_tpu_torch.utils import timer
 
 MIN_ROWS = 17  # torch._int_mm on CUDA: M > 16
 ALIGN = 8  # ... and K, N multiples of 8
@@ -131,13 +138,14 @@ def int8_mm(a, packed, out=None):
     k8 = packed.shape[1]
     if k > k8:
         raise ValueError(f"int8_mm: {k} columns against a packed width of {k8}")
-    if k < k8 or m < MIN_ROWS:
-        a = F.pad(a, (0, k8 - k, 0, max(MIN_ROWS - m, 0)))
-        y = torch._int_mm(a, packed.t())[:m]
-        return y if out is None else out.copy_(y)
-    if out is None:
-        return torch._int_mm(a, packed.t())
-    return torch._int_mm(a, packed.t(), out=out)
+    with timer.span("int8.mm"):
+        if k < k8 or m < MIN_ROWS:
+            a = F.pad(a, (0, k8 - k, 0, max(MIN_ROWS - m, 0)))
+            y = torch._int_mm(a, packed.t())[:m]
+            return y if out is None else out.copy_(y)
+        if out is None:
+            return torch._int_mm(a, packed.t())
+        return torch._int_mm(a, packed.t(), out=out)
 
 
 def _windows(xp, oy: int, ox: int, kernel: int, stride: int, ho: int, wo: int, n: int):
@@ -169,29 +177,34 @@ def _output_size(size: int, kernel: int, stride: int, padding: int) -> int:
 def im2col_chunks(xq, kernel: int, stride: int = 1, padding: int = 0):
     """The int8 im2col of a kxk convolution over xq (N, H, W, C), a chunk of
     frames at a time: yields (first output row, (rows, k * k * C) columns)."""
-    xq = xq.contiguous()
     n, h, w, c = xq.shape
     ho, wo = (_output_size(s, kernel, stride, padding) for s in (h, w))
-    xp = F.pad(xq, (0, 0, padding, padding, padding, padding)) if padding else xq
+    with timer.span("int8.im2col"):
+        xq = xq.contiguous()
+        xp = F.pad(xq, (0, 0, padding, padding, padding, padding)) if padding else xq
     step = _chunk(n, ho * wo, kernel * kernel * c)
     for i in range(0, n, step):
         b = min(step, n - i)
-        yield i * ho * wo, _windows(xp[i:i + b], 0, 0, kernel, stride, ho, wo, b)
+        with timer.span("int8.im2col"):
+            cols = _windows(xp[i:i + b], 0, 0, kernel, stride, ho, wo, b)
+        yield i * ho * wo, cols
 
 
 def conv_transpose_im2col_chunks(xq):
     """The int8 im2col of the 4x4/s2/p1 ConvTranspose over xq (N, H, W, C):
     yields (output phase 2 py + px, first row, (rows, 4 C) columns of the 2x2
     windows of the input padded by 1)."""
-    xq = xq.contiguous()
     n, h, w, c = xq.shape
-    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    with timer.span("int8.im2col"):
+        xp = F.pad(xq.contiguous(), (0, 0, 1, 1, 1, 1))
     step = _chunk(n, h * w, 4 * c)
     for py in range(2):
         for px in range(2):
             for i in range(0, n, step):
                 b = min(step, n - i)
-                yield 2 * py + px, i * h * w, _windows(xp[i:i + b], py, px, 2, 1, h, w, b)
+                with timer.span("int8.im2col"):
+                    cols = _windows(xp[i:i + b], py, px, 2, 1, h, w, b)
+                yield 2 * py + px, i * h * w, cols
 
 
 def int8_conv2d_gemm(xq, packed, out_channels: int, kernel: int, stride: int = 1,
@@ -216,7 +229,8 @@ def int8_conv_transpose2d_gemm(xq, packed, out_channels: int):
     acc = torch.empty(4, n * h * w, n8, dtype=torch.int32, device=xq.device)
     for phase, row, cols in conv_transpose_im2col_chunks(xq):
         int8_mm(cols, packed[phase], out=acc[phase, row:row + cols.shape[0]])
-    acc = acc.view(2, 2, n, h, w, n8).permute(2, 3, 0, 4, 1, 5).reshape(n, 2 * h, 2 * w, n8)
+    with timer.span("int8.rescale"):
+        acc = acc.view(2, 2, n, h, w, n8).permute(2, 3, 0, 4, 1, 5).reshape(n, 2 * h, 2 * w, n8)
     return acc[..., :out_channels]
 
 

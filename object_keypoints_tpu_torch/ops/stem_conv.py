@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from object_keypoints_tpu_torch.ops import _build
+from object_keypoints_tpu_torch.utils import timer
 
 MAX_C_OUT = 128
 K_TAPS = 192  # 4 x 4 unit-stride taps x 12 space-to-depth channels
@@ -56,8 +57,10 @@ def bf16_taps(w):
     weights stay put from one batch to the next, so it is built once and
     kept on ``w`` until ``w`` changes: another storage, dtype or shape, or an
     in-place write (its version counter). An inference tensor has no version
-    counter, so its taps are built on every call."""
+    counter, so its taps are built on every call. A build counts in
+    ``weights.built`` (``utils.timer``)."""
     def build():
+        timer.count("weights.built")
         with torch.no_grad():
             return stem_taps(w.to(torch.bfloat16), MAX_C_OUT).contiguous()
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from object_keypoints_tpu_torch.geometry import cameras as cam_ops
 from object_keypoints_tpu_torch.ops import associate as assoc_ops
 from object_keypoints_tpu_torch.ops import decode as decode_ops
+from object_keypoints_tpu_torch.utils import timer
 
 
 class CameraArrays(NamedTuple):
@@ -82,43 +83,57 @@ def decode_objects_batch(probs, depth, offsets, camera: CameraArrays, keypoint_c
                          peak_threshold: float = 0.5) -> DecodedObjects:
     """Decode a batch. probs (N, 1+T, H, W) probabilities with channel 0 the
     object-center map; depth (N, 1+T, H, W); offsets (N, T, 2, H, W);
-    keypoint_config: per-type capacities, e.g. (1, 3) for the valve."""
+    keypoint_config: per-type capacities, e.g. (1, 3) for the valve. A call
+    is the span ``decode``, its stages ``decode.peaks``, ``decode.assign``,
+    ``decode.capacity`` and ``decode.lift`` (``utils.timer``)."""
     T = len(keypoint_config)
     if probs.shape[1] != T + 1:
         raise ValueError(f"probs has {probs.shape[1]} maps, keypoint_config {keypoint_config} "
                          f"needs {T + 1}")
-    points, conf, valid = decode_ops.extract_peaks(probs, max_peaks, peak_threshold)
+    with timer.span("decode"):
+        return _decode_batch(probs, depth, offsets, camera, keypoint_config, model, max_peaks,
+                             reject_distance, peak_threshold)
+
+
+def _decode_batch(probs, depth, offsets, camera, keypoint_config, model, max_peaks,
+                  reject_distance, peak_threshold) -> DecodedObjects:
+    T = len(keypoint_config)
+    with timer.span("decode.peaks"):
+        points, conf, valid = decode_ops.extract_peaks(probs, max_peaks, peak_threshold)
     center_points, center_valid = points[:, 0], valid[:, 0]
     type_points, type_conf, type_valid = points[:, 1:], conf[:, 1:], valid[:, 1:]
 
-    assignment, predicted_centers = assoc_ops.assign_to_centers(
-        type_points, type_valid, offsets, center_points, center_valid,
-        reject_distance=reject_distance,
-    )
+    with timer.span("decode.assign"):
+        assignment, predicted_centers = assoc_ops.assign_to_centers(
+            type_points, type_valid, offsets, center_points, center_valid,
+            reject_distance=reject_distance,
+        )
 
     n, m = probs.shape[0], max_peaks
     max_cap = max(keypoint_config)
-    objects = torch.arange(m, device=probs.device, dtype=assignment.dtype)
-    per_type_points, per_type_valid = [], []
-    for t, capacity in enumerate(keypoint_config):
-        # (N, objects, detections): detection j of type t belongs to object i
-        mask = (assignment[:, t, None, :] == objects[:, None]) & type_valid[:, t, None, :]
-        out, out_valid = assoc_ops.resolve_capacity(
-            type_points[:, t, None].expand(n, m, m, 2), mask,
-            type_conf[:, t, None].expand(n, m, m), capacity,
+    with timer.span("decode.capacity"):
+        objects = torch.arange(m, device=probs.device, dtype=assignment.dtype)
+        per_type_points, per_type_valid = [], []
+        for t, capacity in enumerate(keypoint_config):
+            # (N, objects, detections): detection j of type t belongs to object i
+            mask = (assignment[:, t, None, :] == objects[:, None]) & type_valid[:, t, None, :]
+            out, out_valid = assoc_ops.resolve_capacity(
+                type_points[:, t, None].expand(n, m, m, 2), mask,
+                type_conf[:, t, None].expand(n, m, m), capacity,
+            )
+            pad = max_cap - capacity
+            per_type_points.append(F.pad(out, (0, 0, 0, pad)))
+            per_type_valid.append(F.pad(out_valid, (0, pad)))
+
+        keypoints = torch.stack(per_type_points, dim=2)  # (N, M, T, C, 2)
+        keypoints_valid = torch.stack(per_type_valid, dim=2) & center_valid[:, :, None, None]
+
+    with timer.span("decode.lift"):
+        center_p3d = _lift(center_points, center_valid, depth[:, 0], camera, model)
+        keypoints_p3d = torch.stack(
+            [_lift(keypoints[:, :, t], keypoints_valid[:, :, t], depth[:, 1 + t], camera, model)
+             for t in range(T)], dim=2,
         )
-        pad = max_cap - capacity
-        per_type_points.append(F.pad(out, (0, 0, 0, pad)))
-        per_type_valid.append(F.pad(out_valid, (0, pad)))
-
-    keypoints = torch.stack(per_type_points, dim=2)  # (N, M, T, C, 2)
-    keypoints_valid = torch.stack(per_type_valid, dim=2) & center_valid[:, :, None, None]
-
-    center_p3d = _lift(center_points, center_valid, depth[:, 0], camera, model)
-    keypoints_p3d = torch.stack(
-        [_lift(keypoints[:, :, t], keypoints_valid[:, :, t], depth[:, 1 + t], camera, model)
-         for t in range(T)], dim=2,
-    )
     return DecodedObjects(
         center_points=center_points,
         center_valid=center_valid,

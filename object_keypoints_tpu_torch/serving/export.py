@@ -33,6 +33,7 @@ from object_keypoints_tpu_torch.serving.weights import (
     keypoint_net_state_dict,
     keypoint_net_variables,
 )
+from object_keypoints_tpu_torch.utils import timer
 
 CONFIG_NAME = "config.json"
 PARAMS_NAME = "params.msgpack"
@@ -139,8 +140,8 @@ def load_quant_scales(path: str) -> Optional[dict]:
 def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda",
                       quant_scales: Optional[dict] = None):
     """Eval-mode reference-contract inference: NCHW frames in, (sigmoid
-    heatmaps, depth, centers) of the last stack out, float32 and contiguous.
-    With ``quant_scales`` the eligible convs run int8
+    heatmaps, depth, centers) of the last stack out, float32 and contiguous;
+    a call is the span ``serve`` (``utils.timer``). With ``quant_scales`` the eligible convs run int8
     (``serving.quantize.quantize_model``, its default placement), the rest
     in ``dtype``.
 
@@ -162,10 +163,11 @@ def make_inference_fn(model: KeypointNet, dtype=torch.float32, device="cuda",
 
     @torch.inference_mode()
     def infer(frames):
-        x = torch.as_tensor(frames).to(device=device, dtype=dtype).contiguous()
-        with no_tf32():
-            outs = outputs_to_reference(model(x), stack=-1)
-        return tuple(t.float().contiguous() for t in outs)
+        with timer.span("serve"):
+            x = torch.as_tensor(frames).to(device=device, dtype=dtype).contiguous()
+            with no_tf32():
+                outs = outputs_to_reference(model(x), stack=-1)
+            return tuple(t.float().contiguous() for t in outs)
 
     return infer
 

@@ -57,6 +57,7 @@ from object_keypoints_tpu_torch.ops.int8_conv import (
     unpack_conv_transpose2d_weight,
 )
 from object_keypoints_tpu_torch.serving.weights import conv_module_paths
+from object_keypoints_tpu_torch.utils import timer
 
 QUANT_NAME = "quant.json"
 
@@ -241,7 +242,11 @@ class Int8Conv(nn.Module):
     parameters (its state_dict entries stay the same); its int8 weights and
     rescale are non-persistent buffers made here, once, from the weight as
     it is now. Input: an (N, C, H, W) tensor, or a ``QuantizedActivation``;
-    output: (N, O, Ho, Wo) channels_last in the input's compute dtype."""
+    output: (N, O, Ho, Wo) channels_last in the input's compute dtype.
+    Spans (``utils.timer``): ``int8.quantize`` over the input's quantize,
+    ``int8.rescale`` over the output's pass (the rescale, the bias, the cast
+    back and the permute); weights quantized again for a
+    ``QuantizedActivation`` at another scale count in ``weights.built``."""
 
     def __init__(self, conv, scale, path: str = ""):
         super().__init__()
@@ -312,24 +317,28 @@ class Int8Conv(nn.Module):
             xq, dtype = x.q, x.dtype
             if x.scale != self.scale:  # quantized at its producer's scale, per tensor
                 packed, rescale, _ = int8_weights(self.weight, x.scale, self.transpose)
+                timer.count("weights.built")
         else:
-            xq, dtype = quantize(x, self.in_scale_inv), x.dtype
+            with timer.span("int8.quantize"):
+                xq, dtype = quantize(x, self.in_scale_inv), x.dtype
         if self.transpose:
             acc = int8_conv_transpose2d(xq, packed, self.out_channels)
         else:
             acc = int8_conv2d(xq, packed, self.out_channels, self.kernel_size, self.stride,
                               self.padding)
-        y = acc.float() * rescale
-        if self.bias is not None:
-            y = y + self.bias.float()
-        return y.to(dtype).permute(0, 3, 1, 2)
+        with timer.span("int8.rescale"):
+            y = acc.float() * rescale
+            if self.bias is not None:
+                y = y + self.bias.float()
+            return y.to(dtype).permute(0, 3, 1, 2)
 
 
 def _handoff_hook(scale: float):
     inv = 1.0 / (scale / 127.0)
 
     def hook(module, args, y):
-        return QuantizedActivation(quantize(y, inv), scale, y.dtype)
+        with timer.span("int8.quantize"):
+            return QuantizedActivation(quantize(y, inv), scale, y.dtype)
     return hook
 
 

@@ -54,6 +54,7 @@ from object_keypoints_tpu_torch.training.trainer import (
     prepare_frames,
     to_device,
 )
+from object_keypoints_tpu_torch.utils import timer
 
 
 def step_decay_schedule(base_lr: float, stepsize: int, decay_rate):
@@ -144,39 +145,45 @@ def detection_loss(model, batch: dict, dtype=torch.float32, saccade: bool = Fals
     """The train-mode forward of ``model`` on ``batch`` (on the model's
     device) and its CornerNet (or, with ``saccade``, CornerNet-Saccade)
     loss: a float32 scalar (float64 for a float64 model); the BatchNorm
-    running statistics are updated."""
-    outs = model.train()(prepare_frames(batch["images"], dtype))
-    tl_heats, br_heats, tl_tags_f, br_tags_f, tl_offs_f, br_offs_f = outs[:6]
-    tl_tags = [gather_tags(t, batch["tl_tags"])[..., 0] for t in tl_tags_f]
-    br_tags = [gather_tags(t, batch["br_tags"])[..., 0] for t in br_tags_f]
-    tl_offs = [gather_tags(t, batch["tl_tags"]) for t in tl_offs_f]
-    br_offs = [gather_tags(t, batch["br_tags"]) for t in br_offs_f]
-    heads = (tl_heats, br_heats, tl_tags, br_tags, tl_offs, br_offs)
-    targets = (_nchw(batch["tl_heatmaps"]), _nchw(batch["br_heatmaps"]), batch["tag_mask"],
-               batch["tl_regrs"], batch["br_regrs"])
-    if not saccade:
-        return cornernet_loss(heads, targets)
-    return cornernet_saccade_loss(
-        (*heads, outs[6]),
-        (*targets, _nchw(batch["tl_valids"]), _nchw(batch["br_valids"]),
-         [_nchw(a) for a in batch["attentions"]]))
+    running statistics are updated. The spans ``train.forward`` (the model)
+    and ``train.loss`` (the tag gathers and the loss; ``utils.timer``)."""
+    with timer.span("train.forward"):
+        outs = model.train()(prepare_frames(batch["images"], dtype))
+    with timer.span("train.loss"):
+        tl_heats, br_heats, tl_tags_f, br_tags_f, tl_offs_f, br_offs_f = outs[:6]
+        tl_tags = [gather_tags(t, batch["tl_tags"])[..., 0] for t in tl_tags_f]
+        br_tags = [gather_tags(t, batch["br_tags"])[..., 0] for t in br_tags_f]
+        tl_offs = [gather_tags(t, batch["tl_tags"]) for t in tl_offs_f]
+        br_offs = [gather_tags(t, batch["br_tags"]) for t in br_offs_f]
+        heads = (tl_heats, br_heats, tl_tags, br_tags, tl_offs, br_offs)
+        targets = (_nchw(batch["tl_heatmaps"]), _nchw(batch["br_heatmaps"]), batch["tag_mask"],
+                   batch["tl_regrs"], batch["br_regrs"])
+        if not saccade:
+            return cornernet_loss(heads, targets)
+        return cornernet_saccade_loss(
+            (*heads, outs[6]),
+            (*targets, _nchw(batch["tl_valids"]), _nchw(batch["br_valids"]),
+             [_nchw(a) for a in batch["attentions"]]))
 
 
 def loss_and_grads(state: TrainState, batch: dict, saccade: bool = False):
     """One step's forward and backward, TF32 off: (loss, gradients of
-    ``state.params``)."""
+    ``state.params``); the backward is the span ``train.backward``."""
     batch = to_device(batch, state.device)
     with no_tf32():
         loss = detection_loss(state.model, batch, state.dtype, saccade)
-        grads = list(torch.autograd.grad(loss, state.params))
+        with timer.span("train.backward"):
+            grads = list(torch.autograd.grad(loss, state.params))
     return loss.detach(), grads
 
 
 def _train_step(state: TrainState, batch: dict, saccade: bool):
-    loss, grads = loss_and_grads(state, batch, saccade)
-    state.tx.step(state.params, grads, state.opt_state)
-    state.step += 1
-    return state, {"loss": loss}
+    with timer.span("train.step"):
+        loss, grads = loss_and_grads(state, batch, saccade)
+        with timer.span("train.optimizer"):
+            state.tx.step(state.params, grads, state.opt_state)
+        state.step += 1
+        return state, {"loss": loss}
 
 
 def detection_train_step(state: TrainState, batch: dict):
