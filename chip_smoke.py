@@ -105,7 +105,11 @@ Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
    the default placement at 96 frames, plus hg_0's up2 unpool: the GEMM
    route's int32 sums equal to the plain version's, the route's and its
    im2col's ms, cuDNN's bf16 conv of the same shape, the route's TOP/s and
-   its share of the card's dense int8 peak; the int8 depth-head and stereo
+   its share of the card's dense int8 peak; the quantize kernel
+   (``okt_quantize_int8``) on each distinct activation those convs took,
+   equal to ``quantize_plain``'s codes on the card, its ms, the plain
+   version's and its bytes bound, the largest input's and summed over a
+   forward's inputs; the int8 depth-head and stereo
    serve steps in bench.py's int8 mode (bf16 with int8 convs, 48 pairs, the
    decode settings of phases 5 and 6): pairs/s, step ms, the forward's ms in
    turns with the bf16 forward's, device ops per forward, peak memory, the
@@ -257,7 +261,9 @@ over the model axis, one stem launch a data row) each set the counts
 to 0 before they run and read them after, and
 the kernels' line gives each kernel's launches from those runs. The int8 convolutions run on cuBLASLt's
 int8 GEMM, not on a kernel of this repository, so they are not in that line;
-phase 11 counts their launches apart.
+phase 11 counts their launches apart. Their input quantize,
+``okt_quantize_int8``, is: its launches are counted over the int8 serves of
+phases 10, 11, 15 and 16, one an int8 conv (or shard of one) each.
 """
 
 import collections
@@ -293,6 +299,8 @@ STEM_SOURCE = "object_keypoints_tpu_torch/csrc/stem_conv.cu"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 STEM_KERNELS = {torch.bfloat16: "stem_conv_bf16", torch.float32: "stem_conv_fp32"}
+QUANTIZE_KERNEL = "okt_quantize_int8"  # the int8 route's input quantize; replaces no Pallas kernel
+QUANTIZE_SOURCE = "object_keypoints_tpu_torch/csrc/int8_quantize.cu"
 MODEL = dict(heatmaps_out=3)  # the valve KeypointNet at full width: KeypointNet's defaults
 
 
@@ -1285,7 +1293,7 @@ def phase_loop(card, bare_step_ms):
                                                               "quant.json"]
         infer_int8 = load_inference_fn(f"{tmp}/package_int8", device="cuda")
         reset_stem_counts()  # the int8 packaged model's serve starts here
-        maps_int8 = infer_int8(frames)
+        maps_int8, quantize_launches = quantize_counted(lambda: infer_int8(frames))
         int8_launches = stem_counts()  # ... and ends here
         assert int8_launches == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, int8_launches
         for t in maps_int8:
@@ -1312,10 +1320,11 @@ def phase_loop(card, bare_step_ms):
         packaged_equals_export=True, packaged_valid_centers=int(decoded.center_valid.sum()),
         packaged_int8=dict(quantized_convs=quantized["quantized_convs"], seconds=quantize_s,
                            calibration="unit-normal fallback", stem_launches=int8_launches,
+                           quantize_launches=quantize_launches,
                            valid_centers=int(decoded_int8.center_valid.sum())),
         phase_s=time.perf_counter() - phase_t0, card=card)
-    return {k: launches[k] + resume_launches[k] + serve_launches[k] + int8_launches[k]
-            for k in launches}
+    return {**{k: launches[k] + resume_launches[k] + serve_launches[k] + int8_launches[k]
+               for k in launches}, QUANTIZE_KERNEL: quantize_launches}
 
 
 INT8_CALIBRATION = dict(n_frames=8, seed=7)  # bench.py's _calibration_batch
@@ -1329,13 +1338,64 @@ def int8_counts():
     from object_keypoints_tpu_torch.ops import int8_conv
 
     return {"int8_conv2d": int8_conv.int8_conv2d.launches,
-            "int8_conv_transpose2d": int8_conv.int8_conv_transpose2d.launches}
+            "int8_conv_transpose2d": int8_conv.int8_conv_transpose2d.launches,
+            "quantize": int8_conv.quantize.launches}
 
 
 def reset_int8_counts():
     from object_keypoints_tpu_torch.ops import int8_conv
 
     int8_conv.int8_conv2d.launches = int8_conv.int8_conv_transpose2d.launches = 0
+    int8_conv.quantize.launches = 0
+
+
+def quantize_counted(fn):
+    """fn()'s result and the quantize kernel's launches in it: one for each
+    int8 conv (or shard of one) it ran, since no input reaches a conv
+    already quantized (OKT_INT8_HANDOFF is off)."""
+    reset_int8_counts()  # a counted run starts here
+    out = fn()
+    counts = int8_counts()  # ... and ends here
+    convs = counts["int8_conv2d"] + counts["int8_conv_transpose2d"]
+    assert counts["quantize"] == convs > 0, counts
+    return out, counts["quantize"]
+
+
+def quantize_row(inputs):
+    """The quantize kernel on each distinct activation an int8 conv of the
+    serve path took (``inputs``: {(shape, dtype, per channel): [x, inv,
+    convs]}), held to ``quantize_plain`` by torch.equal on the card: its ms,
+    the plain version's and the bound (one read of x in its dtype, one int8
+    write, at the HBM rate), the largest input's and summed over one
+    forward's inputs. The small inputs sit in the 50 MB L2 while they are
+    timed back to back, so their share of the bound reads high."""
+    from object_keypoints_tpu_torch.ops.int8_conv import quantize, quantize_plain
+
+    shapes, call = [], dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    for (shape, dtype, per_channel), (x, inv, convs) in inputs.items():
+        assert x.permute(0, 2, 3, 1).is_contiguous(), ("an int8 conv input is not NHWC-dense",
+                                                       shape)
+        before = quantize.launches
+        got = quantize(x, inv)
+        assert quantize.launches == before + 1, (before, quantize.launches)
+        assert torch.equal(got, quantize_plain(x, inv)), ("quantize kernel != plain", shape, dtype)
+        del got
+        row = dict(shape=list(shape), dtype=str(dtype), per_channel=per_channel, convs=convs,
+                   ms=kernel_ms(lambda: quantize(x, inv)),
+                   plain_ms=kernel_ms(lambda: quantize_plain(x, inv), launches=3, runs=3),
+                   bound_ms=1e3 * x.numel() * (x.element_size() + 1) / HBM_BYTES_PER_S)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        shapes.append(row)
+        for k in call:
+            call[k] += convs * row[k]
+    largest = max(shapes, key=lambda r: r["bound_ms"])
+    log("quantize_kernel", kernel=QUANTIZE_KERNEL, shapes=shapes,
+        call={**call, "inputs": sum(r["convs"] for r in shapes),
+              "bound_share": call["bound_ms"] / call["ms"]})
+    return {"equal_to_plain": True, "ms": largest["ms"], "plain_ms": largest["plain_ms"],
+            "bound_ms": largest["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "shape": largest["shape"], "call_ms": call["ms"], "call_plain_ms": call["plain_ms"],
+            "call_bound_ms": call["bound_ms"]}
 
 
 def int8_shape_rows(model, scales, frames):
@@ -1344,17 +1404,23 @@ def int8_shape_rows(model, scales, frames):
     quantized at its calibrated scale: the GEMM route's int32 sums against
     the plain version's (exact), the route's ms and its im2col's alone,
     cuDNN's bf16 conv of the same shape, and the route's TOP/s against the
-    card's dense int8 peak."""
+    card's dense int8 peak. Then the quantize kernel on the real activations
+    that the default placement's convs took (``quantize_row``). Returns the
+    rows and the quantize kernel's row."""
     from object_keypoints_tpu_torch.ops import int8_conv
     from object_keypoints_tpu_torch.serving.quantize import Int8Conv
 
-    seen, handles = {}, []
+    seen, handles, activations = {}, [], {}
 
     def record(module, args):
         x = args[0]
         key = (module.transpose, tuple(x.shape[1:]), module.out_channels, module.kernel_size,
                module.stride, module.padding)
         seen.setdefault(key, (module, []))[1].append(module.path)
+        if module is not up2:  # not in the placement: hg_0's up2 is here for its geometry only
+            inv = module.in_scale_inv
+            key = (tuple(x.shape), x.dtype, isinstance(inv, torch.Tensor))
+            activations.setdefault(key, [x, inv, 0])[2] += 1
 
     up2 = Int8Conv(model.backbone.hgs[0].up2, scales["backbone/hg_0/up2"], "backbone/hg_0/up2")
     for m in [*(m for m in model.modules() if isinstance(m, Int8Conv)), up2]:
@@ -1424,8 +1490,13 @@ def int8_shape_rows(model, scales, frames):
             equal_to_plain=True, route_tops=ops / ms / 1e9,
             int8_peak_share=ops / ms * 1e3 / PEAK_INT8_OPS))
         del xq, xb
+    n_int8 = sum(isinstance(m, Int8Conv) for m in model.modules())
+    assert sum(a[2] for a in activations.values()) == n_int8, (activations.keys(), n_int8)
+    with torch.inference_mode():  # the recorded activations are inference tensors
+        quantized = quantize_row(activations)
+    del activations
     torch.cuda.empty_cache()
-    return rows
+    return rows, quantized
 
 
 def phase_int8(card):
@@ -1482,7 +1553,7 @@ def phase_int8(card):
     infer_bf16 = make_inference_fn(make_model(), dtype=torch.bfloat16, device="cuda")
     frames = torch.randn(2 * PAIRS, 3, 511, 511, generator=torch.Generator().manual_seed(SEED + 2))
     frames = frames.to("cuda", torch.bfloat16)
-    shapes = int8_shape_rows(int8_model, scales, frames)
+    shapes, quantized = int8_shape_rows(int8_model, scales, frames)
 
     # 3. the int8 depth-head and stereo serve steps
     rig = StereoRigArrays.from_stereo_camera(cam_pair, device="cuda")
@@ -1513,7 +1584,8 @@ def phase_int8(card):
         runs = 3 + INT8_TIMED
         assert counts == {"all": runs, "stem_conv_bf16": runs, "stem_conv_fp32": 0}, counts
         assert int8["int8_conv2d"] == runs * n_int8 and int8["int8_conv_transpose2d"] == 0, int8
-        launches.append(counts)
+        assert int8["quantize"] == runs * n_int8, int8
+        launches.append({**counts, QUANTIZE_KERNEL: int8["quantize"]})
         steps[name] = dict(pairs_per_sec=PAIRS * INT8_TIMED / seconds,
                            step_ms=1e3 * seconds / INT8_TIMED, stem_launches=counts,
                            int8_launches=int8)
@@ -1560,8 +1632,8 @@ def phase_int8(card):
         artifact_counts, artifact_int8 = stem_counts(), int8_counts()  # ... and ends here
         assert artifact_counts == {"all": 1, "stem_conv_bf16": 0, "stem_conv_fp32": 1}, (
             artifact_counts)
-        assert artifact_int8["int8_conv2d"] == n_int8, artifact_int8
-        launches.append(artifact_counts)
+        assert artifact_int8["int8_conv2d"] == artifact_int8["quantize"] == n_int8, artifact_int8
+        launches.append({**artifact_counts, QUANTIZE_KERNEL: artifact_int8["quantize"]})
         t0 = time.perf_counter()
         cpu_maps = load_inference_fn(f"{tmp}/int8", device="cpu")(x2)
         cpu_s = time.perf_counter() - t0
@@ -1597,7 +1669,7 @@ def phase_int8(card):
                       cpu_forward_s=cpu_s, never_bitwise_equal_float=never_equal,
                       int8_vs_float32_max_abs=int8_vs_float32, require_raises=True),
         phase_s=time.perf_counter() - phase_t0, card=card)
-    return {k: sum(c[k] for c in launches) for k in launches[0]}
+    return {k: sum(c[k] for c in launches) for k in launches[0]}, quantized
 
 
 DETECT_IMAGE = (480, 640)  # COCO's typical size: non-square frames
@@ -2610,7 +2682,8 @@ def phase_distributed(card, serve_step_pairs_per_sec, bare_step_ms):
         single8 = load_inference_fn(f"{tmp}/int8", device="cuda")
         want8 = single8(small)
         before = dict(launches)
-        got8 = counted(lambda: load_sharded_inference_fn(f"{tmp}/int8")(small))
+        got8, quantize_launches = quantize_counted(
+            lambda: counted(lambda: load_sharded_inference_fn(f"{tmp}/int8")(small)))
         int8_launches = {k: launches[k] - before[k] for k in launches}
         assert int8_launches["stem_conv_fp32"] == len(devices), int8_launches
         # the int8 serve on the card is not bit-reproducible from call to call
@@ -2717,9 +2790,11 @@ def phase_distributed(card, serve_step_pairs_per_sec, bare_step_ms):
                   "rel 1e-5, the whole gradient within 1e-2 of its norm, each running statistic "
                   "within 1e-4 of its tensor's largest",
         stem_launches=launches, int8_stem_launches=int8_launches,
+        int8_quantize_launches=quantize_launches,
         export_stem_launches=export_launches, phase_s=time.perf_counter() - phase_t0, card=card)
-    return launches, dict(batch=batch, init=init, want_step=want_step, scales=scales,
-                          group_step_ms=one["runs"][1]["step_ms"], bare_step_ms=bare_ms)
+    return {**launches, QUANTIZE_KERNEL: quantize_launches}, dict(
+        batch=batch, init=init, want_step=want_step, scales=scales,
+        group_step_ms=one["runs"][1]["step_ms"], bare_step_ms=bare_ms)
 
 
 GRID_MODEL_PARALLEL = 2  # a (data 2, model 2) grid: four gloo ranks share the card
@@ -2891,8 +2966,9 @@ def phase_model_axis(card, inputs):
                      quant_scales=inputs["scales"])
         want8 = load_inference_fn(f"{tmp}/int8", device="cuda")(small)
         before = dict(launches)
-        got8 = counted(lambda: load_sharded_inference_fn(f"{tmp}/int8", devices=devices,
-                                                         model_parallel=m)(small))
+        got8, quantize_launches = quantize_counted(lambda: counted(
+            lambda: load_sharded_inference_fn(f"{tmp}/int8", devices=devices,
+                                              model_parallel=m)(small)))
     int8_launches = {k: launches[k] - before[k] for k in launches}
     assert int8_launches["stem_conv_fp32"] == 2, int8_launches
     int8_err = [(g - w).abs().max().item() for g, w in zip(got8, want8)]
@@ -2920,9 +2996,10 @@ def phase_model_axis(card, inputs):
                   "Adam's first-step bound from the two gradients (grid_step_against); serves: "
                   "each map's largest difference over max(1, max |single|)",
         stem_launches=launches, int8_stem_launches=int8_launches,
+        int8_quantize_launches=quantize_launches,
         phase_s=time.perf_counter() - phase_t0, card=card)
     assert n_sharded == 62, n_sharded
-    return launches
+    return {**launches, QUANTIZE_KERNEL: quantize_launches}
 
 
 def main():
@@ -2936,7 +3013,8 @@ def main():
     train_launches, bare_step_ms = phase_train(card)
     paths.append(train_launches)
     paths.append(phase_loop(card, bare_step_ms))
-    paths.append(phase_int8(card))
+    int8_launches, quantized = phase_int8(card)
+    paths.append(int8_launches)
     paths.append(phase_detector(card))
     paths.append(phase_saccade(card))
     paths.append(phase_detector_eval(card))
@@ -2948,6 +3026,9 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": STEM_SOURCE, "replaces": STEM_REPLACES,
                 "launches": sum(p[name] for p in paths), **stem[name]}
                for name in STEM_KERNELS.values()]
+    kernels.append({"name": QUANTIZE_KERNEL, "route": "cuda", "source": QUANTIZE_SOURCE,
+                    "replaces": None,
+                    "launches": sum(p.get(QUANTIZE_KERNEL, 0) for p in paths), **quantized})
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -83,4 +83,7 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.okt_stem_conv_fp32, lib.okt_stem_conv_bf16):
         fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
+    lib.okt_quantize_int8.argtypes = [p, i, p, ctypes.c_float, p, ctypes.c_longlong,
+                                      ctypes.c_longlong, p]
+    lib.okt_quantize_int8.restype = ctypes.c_int
     return lib

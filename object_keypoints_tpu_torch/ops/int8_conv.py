@@ -27,10 +27,18 @@ or raises. The plain versions (``F.conv2d`` / ``F.conv_transpose2d`` in
 float64 on the integer-valued tensors, rounded back to int32; exact, since
 every sum stays far below 2^53) run for CPU tensors and in the tests.
 
+The activations' quantize, ``quantize``, runs the hand-written kernel
+``csrc/int8_quantize.cu::okt_quantize_int8`` on a CUDA tensor: one read of
+the activation in its own dtype, one write of the int8 NHWC codes, the codes
+of the plain version bit for bit. The plain version, ``quantize_plain``
+(the eager chain), runs for CPU tensors and in the tests.
+
 Spans (``utils.timer``): ``int8.im2col`` over each gather of columns (and
 the padding before them), ``int8.mm`` over each GEMM, ``int8.rescale`` over
 the ConvTranspose's phase interleave (the rest of that pass is
-``serving.quantize.Int8Conv``'s).
+``serving.quantize.Int8Conv``'s). Counters: ``int8.quantize.kernel``, a
+launch of the quantize kernel; ``int8.quantize.relayout``, an input made
+channels_last before it.
 
 Layouts: activations NHWC int8 (the memory of a channels_last NCHW tensor),
 accumulators NHWC int32; unpacked weights in torch's layouts, (O, I, kH, kW)
@@ -42,6 +50,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from object_keypoints_tpu_torch.ops import _build
 from object_keypoints_tpu_torch.utils import timer
 
 MIN_ROWS = 17  # torch._int_mm on CUDA: M > 16
@@ -50,17 +59,64 @@ COLUMN_BYTES = 1 << 30  # the im2col of one chunk of frames
 # ConvTranspose 4x4/s2/p1: output row 2m + p reads the zero-padded input
 # rows m + p and m + p + 1 (padding 1) with the kernel rows TAPS[p]
 TAPS = ((3, 1), (2, 0))
+# okt_quantize_int8's code for each activation dtype it takes
+QUANTIZE_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def quantize_plain(x, inv_scale):
+    """The plain version of ``quantize``: the eager chain, a permute and a
+    float32 cast, the multiply, ``torch.round``, the clip, the int8 cast."""
+    if isinstance(inv_scale, torch.Tensor):
+        inv_scale = inv_scale.view(1, 1, 1, -1)
+    y = x.permute(0, 2, 3, 1).float() * inv_scale
+    return torch.round(y).clamp_(-127, 127).to(torch.int8).contiguous()
 
 
 def quantize(x, inv_scale):
     """x (N, C, H, W), any float dtype -> int8 codes (N, H, W, C), contiguous:
     ``clip(round(float32(x) * inv_scale), -127, 127)``, rounding half to
     even. ``inv_scale`` is a Python float (per tensor) or a float32 (C,)
-    tensor (per input channel)."""
+    tensor (per input channel). A CPU tensor runs ``quantize_plain``; a CUDA
+    tensor (bfloat16, float16 or float32) the kernel ``okt_quantize_int8``,
+    counted in ``quantize.launches``, or raises. An input whose memory is
+    not NHWC-dense (channels_last) is made so first, counted in the
+    counter ``int8.quantize.relayout``."""
+    if x.device.type == "cpu":
+        return quantize_plain(x, inv_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize: no kernel for device {x.device}")
+    dtype_code = QUANTIZE_DTYPES.get(x.dtype)
+    if dtype_code is None:
+        raise TypeError(f"quantize: bfloat16, float16 or float32 activations, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"quantize: an (N, C, H, W) activation, got {tuple(x.shape)}")
+    n, c, h, w = x.shape
+    inv, inv_value = None, 0.0
     if isinstance(inv_scale, torch.Tensor):
-        inv_scale = inv_scale.view(1, 1, 1, -1)
-    y = x.permute(0, 2, 3, 1).float() * inv_scale
-    return torch.round(y).clamp_(-127, 127).to(torch.int8).contiguous()
+        if (inv_scale.dtype != torch.float32 or inv_scale.numel() != c
+                or inv_scale.device != x.device):
+            raise ValueError(f"quantize: a float32 ({c},) scale on {x.device}, got "
+                             f"{inv_scale.dtype} {tuple(inv_scale.shape)} on {inv_scale.device}")
+        inv = inv_scale.contiguous()
+    else:
+        inv_value = float(inv_scale)  # rounded to float32 by the call, as CUDA's multiply does
+    if not x.permute(0, 2, 3, 1).is_contiguous():
+        x = x.contiguous(memory_format=torch.channels_last)
+        timer.count("int8.quantize.relayout")
+    out = torch.empty((n, h, w, c), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.okt_quantize_int8(x.data_ptr(), dtype_code,
+                                    None if inv is None else inv.data_ptr(), inv_value,
+                                    out.data_ptr(), out.numel(), c,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"quantize kernel launch failed: cudaError {err}")
+    quantize.launches += 1
+    timer.count("int8.quantize.kernel")
+    return out
 
 
 def _round_up(n: int, m: int = ALIGN) -> int:
@@ -272,6 +328,7 @@ def int8_conv_transpose2d(xq, packed, out_channels: int):
     return out
 
 
-# convolutions run on the GEMM route (CUDA tensors)
+# convolutions run on the GEMM route, quantize kernels launched (CUDA tensors)
+quantize.launches = 0
 int8_conv2d.launches = 0
 int8_conv_transpose2d.launches = 0

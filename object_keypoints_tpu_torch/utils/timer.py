@@ -32,7 +32,10 @@ and ``decode.lift`` (``pipeline.decode.decode_objects_batch``);
 ``weights.built`` counts weights made again inside a call: a cast of
 ``models.blocks.in_dtype`` that misses its cache, the stem kernel's taps
 rebuilt (``ops.stem_conv.bf16_taps``), an int8 conv's weights quantized
-again for an input at another scale (``serving.quantize.Int8Conv``).
+again for an input at another scale (``serving.quantize.Int8Conv``). The
+counters ``int8.quantize.kernel`` and ``int8.quantize.relayout`` count the
+quantize kernel's launches and the inputs made channels_last before it
+(``ops.int8_conv.quantize``).
 
 ``trace(log_dir)`` runs ``torch.profiler.profile`` over the region (the CPU,
 and the card where there is one) with the spans on and writes its Chrome
