@@ -5,13 +5,15 @@ The port marks its layer boundaries with spans and counts events
 stages, the int8 conv's ``int8.quantize`` / ``im2col`` / ``mm`` /
 ``rescale``, ``train.step`` and its phases, ``corner_pool.forward`` /
 ``backward``; the counter ``weights.built``). Its tracing is off through the
-window and the harness's profiled stretches: there an ``okt::`` range would
-be counted as a device operation by ``harness.trace`` and fill the card's
-idle time. ``collect(call, calls)`` runs after every other reading of a
-traced run has been taken, the device record included, and turns the
-program's tracing on for two stretches of ``calls`` calls of the kind's
-traced ``call(record_function, j)`` (its marks left out), restoring the
-earlier state after, also after an error:
+window and the harness's profiled stretches, so that its cost on the host
+reaches no other reading (``harness.trace`` leaves its ``okt::`` ranges out
+of the device operations all the same). ``collect(call, calls)`` runs
+after every other reading of a traced run has been taken, the device record
+included, and turns the program's tracing on for two stretches of ``calls``
+calls of the kind's traced ``call(record_function, j)`` (its marks left
+out), restoring the earlier state after, also after an error; both kinds
+keep what it returns as ``run.program``, which the per-layer metrics of
+source ``program_span`` read through ``span_field``:
 
 (a) no profiler: per span name the host ms a call (``host.<name>.ms``, the
     spans' whole length), self ms a call (``self_ms``, less their children)
@@ -50,6 +52,15 @@ import torch
 from torch.autograd import DeviceType
 
 PREFIX = "okt::"  # the port's span ranges (utils.timer.PREFIX)
+
+
+def span_field(run, span: str, field: str):
+    """``field`` of ``span``'s row in a traced run's program trace
+    (``collect``'s ``device``, a call's worth), or None where the run has no
+    program trace or the span is not in it."""
+    program = getattr(run, "program", None)
+    row = (program or {}).get("device", {}).get(span)
+    return None if row is None else row.get(field)
 
 
 def _no_mark(name):

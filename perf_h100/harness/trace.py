@@ -22,6 +22,8 @@ import re
 
 import torch
 
+from harness.program_trace import PREFIX
+
 # identifiers that say nothing of which kernel ran
 NOISE = {"void", "at", "native", "c10", "std", "anonymous", "namespace", "const", "unsigned",
          "char", "int", "long", "bool", "float", "double", "Half", "BFloat16", "array",
@@ -118,15 +120,16 @@ def _union(intervals):
 
 def _events(prof, marks):
     """(device operations, host spans) of a profile: the device's kernels and
-    copies, leaving out the spans' own annotations, as (start, end, name) in
-    us on one clock; and the host's ``marks`` ranges."""
+    copies, leaving out the spans' own annotations and the program's
+    (``okt::`` ranges), as (start, end, name) in us on one clock; and the
+    host's ``marks`` ranges."""
     from torch.autograd import DeviceType
 
     device, host = [], []
     for e in prof.events():
         s, t = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CUDA:
-            if e.name not in marks:
+            if e.name not in marks and not e.name.startswith(PREFIX):
                 device.append((s, t, e.name))
         elif e.name in marks:
             host.append((s, t, e.name))

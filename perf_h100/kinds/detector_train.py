@@ -15,7 +15,9 @@ The traffic file gives:
   ``trace_seconds``: how long a traced run profiles the card's activity
   after the window, steps back to back on the pool; ``trace_calls``: steps
   profiled with the host's activity too, for the idle gaps
-  (``harness.trace``).
+  (``harness.trace``), and each of the two stretches of the program's own
+  spans and counters, taken after every other reading
+  (``harness.program_trace``).
 
 Images are unit-normal noise on the card (the step takes normalized
 frames); the corner targets come from the boxes through
@@ -52,7 +54,7 @@ import types
 import numpy as np
 import torch
 
-from harness import flops, trace
+from harness import flops, program_trace, trace
 from harness.core import device_record, dtype, sync
 from harness.weights import materialize, meta_model, seeded_state
 from reference import lowp
@@ -70,6 +72,13 @@ def _factory(path):
     return getattr(__import__(module, fromlist=[name]), name)
 
 
+def port_model(config):
+    """The port's detector of ``config`` (its ``program_factory`` with the
+    categories and ``program_kwargs``) on the meta device."""
+    return meta_model(_factory(config["program_factory"]), config["db"]["categories"],
+                      **config.get("program_kwargs", {}))
+
+
 class Program:
     """The port's train state and step, built from the seeded state."""
 
@@ -77,8 +86,7 @@ class Program:
         from object_keypoints_tpu_torch.training import detection
 
         cfg = ctx.config
-        model = materialize(meta_model(_factory(cfg["program_factory"]), cfg["db"]["categories"],
-                                       **cfg.get("program_kwargs", {})), state, ctx.device)
+        model = materialize(port_model(cfg), state, ctx.device)
         opt = detection.DetectionOptimizer(cfg["system"]["opt_algo"], detection.step_decay_schedule(
             cfg["system"]["learning_rate"], cfg["system"]["stepsize"],
             cfg["system"]["decay_rate"]))
@@ -253,6 +261,9 @@ def run(ctx, program_cls=Program):
         meta_model(ctx.reference.reference_model, ctx.config), (tr["batch"], 3, h, w))
     rec.info["peak"] = "bf16"
     rec.device = device_record(ctx)
+    if ctx.trace and dev != "cpu":
+        rec.program = program_trace.collect(call, tr["trace_calls"])
+        rec.info["program_trace"] = rec.program
     got = {"losses": torch.stack(losses).float().cpu(), "grads": torch.stack(grads).float().cpu(),
            "deltas": torch.stack(deltas).float().cpu(), "heads": heads}
     names = program.names

@@ -13,8 +13,10 @@ The traffic file gives:
   the seed among the window's first ``from_first``; ``trace_seconds``: how
   long a traced run profiles the card's activity after the window, calls
   back to back on the pool; ``trace_calls``: calls profiled with the
-  host's activity too, for the idle gaps (``harness.trace``);
-  ``ref_block``: frames a block of the reference's forward.
+  host's activity too, for the idle gaps (``harness.trace``), and each of
+  the two stretches of the program's own spans and counters, taken after
+  every other reading (``harness.program_trace``); ``ref_block``: frames a
+  block of the reference's forward.
 
 One client, one batch in flight: each call is submitted when the last one's
 objects are on the host, timed on the host's clock from submit until then.
@@ -43,7 +45,7 @@ import types
 import numpy as np
 import torch
 
-from harness import flops, trace
+from harness import flops, program_trace, trace
 from harness.core import device_record, dtype, sync
 from harness.camera import camera_tensors, serve_camera
 from harness.weights import batchnorm_stats, materialize, meta_model, seeded_state
@@ -55,16 +57,23 @@ PX_TOL, P3D_TOL = 1e-3, 1e-4
 
 
 
+def port_model(config):
+    """The port's keypoint model of ``config`` on the meta device."""
+    from object_keypoints_tpu_torch.serving.export import model_from_config
+
+    return meta_model(model_from_config, config["model"])
+
+
 class Program:
     """The port's serve path, built from the seeded state."""
 
     def __init__(self, ctx, state, camera, calibration):
         from object_keypoints_tpu_torch.pipeline.decode import CameraArrays, decode_objects_batch
-        from object_keypoints_tpu_torch.serving.export import make_inference_fn, model_from_config
+        from object_keypoints_tpu_torch.serving.export import make_inference_fn
 
         tr = ctx.traffic
         compute = dtype(tr["dtype"])
-        model = materialize(meta_model(model_from_config, ctx.config["model"]), state, ctx.device)
+        model = materialize(port_model(ctx.config), state, ctx.device)
         scales = None
         if tr.get("quantize"):
             from object_keypoints_tpu_torch.serving.quantize import calibrate_activation_scales
@@ -237,6 +246,9 @@ def run(ctx, program_cls=Program):
     rec.info["frames"] = [2 * tr["pairs"], 3, tr["frame"], tr["frame"]]
     rec.info["peak"] = "int8" if tr.get("quantize") else "bf16"
     rec.device = device_record(ctx)
+    if ctx.trace and dev != "cpu":
+        rec.program = program_trace.collect(call, tr["trace_calls"])
+        rec.info["program_trace"] = rec.program
     del program
     release(dev)
     rec.readings = check(ctx, state, camera, pool, kept, calibration)

@@ -13,28 +13,36 @@ sys.path[:0] = [p for p in (HERE, ROOT) if p not in sys.path]
 
 from harness import core  # noqa: E402
 
-# tiny widths: the same code paths at a size the CPU runs in seconds
-TINY_KEYPOINT = dict(features=8, levels=2, dims=[16, 16, 32], mods=[1, 1, 1],
-                     stem_features=[8, 16], cnv_dim=16)
-TINY_SQUEEZE = dict(stacks=2, levels=2, dims=[8, 8, 16], mods=[1, 1, 1], cnv_dim=8,
-                    stem_residuals=1, head_kernel=1)
+# a configuration's CPU size: the same code paths at widths the CPU runs in seconds
+TINY_DIR = os.path.join(HERE, "tests", "tiny")
+
+
+def tiny_config(name):
+    """``tests/tiny/<name>.json``: what a configuration's CPU-sized copy sets
+    (its widths, the program's factory and arguments, its input and output
+    sizes); a group that is an object in both is updated key by key."""
+    path = os.path.join(TINY_DIR, name + ".json")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"configuration {name!r} has no CPU size: "
+                                f"{os.path.relpath(path, ROOT)} not found")
+    return core.read_json(path)
 
 
 def shrink(cell):
-    """Cut a cell's configuration and traffic to a CPU-sized copy in place."""
+    """Cut a cell's configuration (by its tiny file) and traffic (by its
+    kind) to a CPU-sized copy in place."""
     cfg, tr = cell.config, cell.traffic
+    for key, value in tiny_config(cell.workload["config"]).items():
+        if isinstance(value, dict) and isinstance(cfg.get(key), dict):
+            cfg[key].update(value)
+        else:
+            cfg[key] = value
     if tr["kind"] == "keypoint_serve":
-        cfg["model"].update(TINY_KEYPOINT)
-        cfg["output_size"] = 8
         tr.update(pairs=2, frame=63, pool=2, warm_calls=1, ref_block=2,
                   sample={"calls": 2, "from_first": 3})
         if tr.get("quantize"):
             tr["quantize"] = dict(tr["quantize"], batches=1, batch=2)
     else:
-        cfg["model"].update(TINY_SQUEEZE)
-        cfg["program_factory"] = "object_keypoints_tpu_torch.models.cornernet:CornerNetModel"
-        cfg["program_kwargs"] = dict(TINY_SQUEEZE, hourglass="fire")
-        cfg["db"].update(categories=3, input_size=[64, 64], output_sizes=[[16, 16]])
         tr.update(batch=4, dtype="float32",
                   objects=dict(tr["objects"], sides=[[4, 8], [8, 16], [16, 40]]))
     return cell

@@ -70,13 +70,17 @@ def test_traced_result_line_keys(tiny_cell):
                                                           "frames": [4, 3, 63, 63]},
         device={"platform": "gpu", "kind": "card", "count": 1, "memory_peak_bytes": 1},
         trace={"busy_s": 0.5, "window_s": 1.0, "kernels": {"stem_conv_bf16_kernel": [1e-3, 2]},
-               "breakdown": {"device_ops": [["k", 0.5]], "idle_gaps": [["decode", 0.5]]}})
+               "breakdown": {"device_ops": [["k", 0.5]], "idle_gaps": [["decode", 0.5]]}},
+        program={"counts": {}, "device": {"decode": {"ms": 2.2, "kernels": 1260.0,
+                                                     "idle_ms": 9.0}}})
     out, _ = core.result_line(cell, rec, True)
     assert list(out) == ["correct", "attempted", "failed", "metrics", "device", "breakdown",
                          "checks"]
     assert {"busy_s", "window_s"} <= set(out["device"])
     assert set(out["metrics"]) == {m["name"] for m in cell.per_layer}
     assert out["metrics"]["device_idle.serve"]["value"] == 50.0
+    assert out["metrics"]["decode_kernels.serve"] == {"value": 1260.0, "unit": "kernels"}
+    assert out["metrics"]["weight_builds.serve"]["value"] == 0.0
 
 
 def test_heads_gap():

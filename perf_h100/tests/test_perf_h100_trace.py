@@ -30,6 +30,19 @@ def test_busy_window_and_gaps():
     assert list(gaps) == ["forward"] and abs(gaps["forward"] - 40e-6) < 1e-12
 
 
+def test_program_ranges_are_not_device_operations():
+    """The program's ``okt::`` ranges, left on, neither count as kernels nor
+    fill the card's idle time."""
+    device = prof([event("k1", 10, 20), event("okt::decode", 20, 50), event("k3", 50, 60)])
+    host = prof([event("call", 0, 60, False), event("decode", 0, 60, False),
+                 event("okt::decode", 15, 55, False), event("k1", 10, 20),
+                 event("okt::decode", 20, 50), event("k3", 50, 60)])
+    out = trace.reduce_trace(device, host)
+    assert out["busy_s"] == 20e-6 and out["window_s"] == 50e-6
+    assert set(out["kernels"]) == {"k1", "k3"}
+    assert dict(out["breakdown"]["idle_gaps"]) == {"decode": 40e-6}
+
+
 def test_no_device_operation_reads_nothing():
     out = trace.reduce_trace(prof([]), prof([]))
     assert out["busy_s"] == 0.0 and out["breakdown"] is None
