@@ -23,7 +23,10 @@ tl_tags, br_tags, tl_offs, br_offs(, atts)], each a list over stacks of
 NCHW maps; ``forward(x, test=True, **decode_kwargs)`` computes the last
 stack's heads alone and decodes them (``ops.detection_decode``): detections
 (N, num_dets, 8), tl_heat, br_heat, tl_tag, br_tag (and, for the saccade
-model, the last stack's attention maps as clipped probabilities).
+model, the last stack's attention maps as clipped probabilities). Both run
+the backbone under the span ``detector.backbone`` and the corner pools and
+prediction heads (the attention heads too) under ``detector.heads``
+(``utils.timer``; off by default); the decode is outside both.
 
 Init follows the JAX package (``blocks.reset_like_jax``), drawn from the
 ``torch.Generator`` given, with the heat and attention output biases at
@@ -47,6 +50,7 @@ from object_keypoints_tpu_torch.models.hourglass import HourglassStack
 from object_keypoints_tpu_torch.ops import corner_pool as pools
 from object_keypoints_tpu_torch.ops.detection_decode import decode_detections
 from object_keypoints_tpu_torch.ops.stem_conv import stem_conv
+from object_keypoints_tpu_torch.utils import timer
 
 HEAT_BIAS = -2.19
 
@@ -131,17 +135,20 @@ class CornerNetModel(nn.Module):
                 self.br_tags[s](br), self.tl_offs[s](tl), self.br_offs[s](br))
 
     def forward(self, x, test: bool = False, stem=stem_conv, **decode_kwargs):
-        feats = self.hg(x, stem)
+        with timer.span("detector.backbone"):
+            feats = self.hg(x, stem)
         cnvs, ups = feats if self.with_attention else (feats, [])
-        # the test path reads the last stack's attention alone
-        atts = [[att(u) for att, u in zip(self.att_modules[s], stack_ups)]
-                for s, stack_ups in enumerate(ups) if not test or s == self.stacks - 1]
-        if not test:
-            outs = [list(t) for t in zip(*(self.heads(cnv, s) for s, cnv in enumerate(cnvs)))]
-            if self.with_attention:
-                outs.append(atts)
-            return outs
-        tl_heat, br_heat, tl_tag, br_tag, tl_off, br_off = self.heads(cnvs[-1], self.stacks - 1)
+        with timer.span("detector.heads"):
+            # the test path reads the last stack's attention alone
+            atts = [[att(u) for att, u in zip(self.att_modules[s], stack_ups)]
+                    for s, stack_ups in enumerate(ups) if not test or s == self.stacks - 1]
+            if not test:
+                outs = [list(t) for t in zip(*(self.heads(cnv, s) for s, cnv in enumerate(cnvs)))]
+                if self.with_attention:
+                    outs.append(atts)
+                return outs
+            tl_heat, br_heat, tl_tag, br_tag, tl_off, br_off = self.heads(cnvs[-1],
+                                                                          self.stacks - 1)
         detections = decode_detections(tl_heat, br_heat, tl_tag, br_tag, tl_off, br_off,
                                        **decode_kwargs)
         if self.with_attention:

@@ -27,8 +27,9 @@ and ``decode.lift`` (``pipeline.decode.decode_objects_batch``);
 ``int8.quantize``, ``int8.im2col``, ``int8.mm`` and ``int8.rescale``
 (``serving.quantize``, ``ops.int8_conv``); ``train.step`` with
 ``train.forward``, ``train.loss``, ``train.backward`` and
-``train.optimizer`` (``training.detection``); ``corner_pool.forward`` and
-``corner_pool.backward`` (``ops.corner_pool``). The counter
+``train.optimizer`` (``training.detection``); ``detector.backbone`` and
+``detector.heads`` (``models.cornernet``'s forward); ``corner_pool.forward``
+and ``corner_pool.backward`` (``ops.corner_pool``). The counter
 ``weights.built`` counts weights made again inside a call: a cast of
 ``models.blocks.in_dtype`` that misses its cache, the stem kernel's taps
 rebuilt (``ops.stem_conv.bf16_taps``), an int8 conv's weights quantized

@@ -44,9 +44,12 @@ TINY_KEYPOINT = dict(heatmaps_out=3, features=8, levels=2, dims=[16, 16, 32], mo
                      stem_features=[8, 16], cnv_dim=16)
 TINY_SQUEEZE = dict(stacks=2, levels=2, dims=(16, 16, 32), mods=(1, 1, 1), hourglass="fire",
                     stem_residuals=2, cnv_dim=16)
+TINY_CORNERNET = dict(stacks=2, levels=2, dims=(16, 16, 32), mods=(1, 1, 1),
+                      hourglass="residual", stem_residuals=1, cnv_dim=16, head_kernel=3)
 CATS = 3
 DECODE = ("decode.peaks", "decode.assign", "decode.capacity", "decode.lift")
 TRAIN = ("train.forward", "train.loss", "train.backward", "train.optimizer")
+DETECTOR = ("detector.backbone", "detector.heads")
 
 
 @pytest.fixture(autouse=True)
@@ -82,15 +85,17 @@ def serve_fn(int8=False, dtype=torch.float32):
     return call
 
 
-def train_fn():
-    """A tiny CornerNet-Squeeze train step on the CPU."""
+def train_fn(arch=TINY_SQUEEZE):
+    """A tiny CornerNet-Squeeze (or ``arch``) train step on the CPU."""
     torch.manual_seed(0)
-    model = cornernet.CornerNetModel(CATS, **TINY_SQUEEZE)
+    model = cornernet.CornerNetModel(CATS, **arch)
     optimizer = detection.make_detection_optimizer(SystemConfig(learning_rate=1e-3, stepsize=10))
     state = detection.create_train_state(model, optimizer, torch.float32, device="cpu")
     rng = np.random.default_rng(0)
     boxes = np.array([[4.0, 6.0, 30.0, 40.0, 1.0], [20.0, 10.0, 50.0, 28.0, 2.0]], np.float32)
-    ts = [render_corner_targets(boxes, CATS, (64, 64), (8, 8), gaussian_iou=0.3, max_tag_len=8)
+    out = 64 // 2 ** (1 + arch["stem_residuals"])
+    ts = [render_corner_targets(boxes, CATS, (64, 64), (out, out), gaussian_iou=0.3,
+                                max_tag_len=8)
           for _ in range(2)]
     batch = {k: np.stack([t[k] for t in ts]) for k in ts[0]}
     batch["images"] = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
@@ -100,7 +105,8 @@ def train_fn():
     return call
 
 
-CALLS = {"serve": serve_fn, "serve_int8": lambda: serve_fn(int8=True), "train": train_fn}
+CALLS = {"serve": serve_fn, "serve_int8": lambda: serve_fn(int8=True), "train": train_fn,
+         "train_cornernet": lambda: train_fn(TINY_CORNERNET)}
 
 
 @pytest.mark.parametrize("name", sorted(CALLS))
@@ -209,7 +215,8 @@ def test_train_spans_parents_and_calls():
         call()
     spans = timer.snapshot()["spans"]
     names = by_name(spans)
-    assert set(names) == {"train.step", *TRAIN, "corner_pool.forward", "corner_pool.backward"}
+    assert set(names) == {"train.step", *TRAIN, *DETECTOR, "corner_pool.forward",
+                          "corner_pool.backward"}
     steps = names["train.step"]
     assert len(steps) == 2 and all(spans[i]["parent"] is None for i in steps)
     assert len({spans[i]["call"] for i in steps}) == 2
@@ -217,7 +224,7 @@ def test_train_spans_parents_and_calls():
         assert [spans[spans[i]["parent"]]["name"] for i in names[name]] == ["train.step"] * 2
     # four pools a stack, two stacks: eight a step each way; a CPU backward runs on this thread
     assert len(names["corner_pool.forward"]) == len(names["corner_pool.backward"]) == 16
-    for name, parent in (("corner_pool.forward", "train.forward"),
+    for name, parent in (("corner_pool.forward", "detector.heads"),
                          ("corner_pool.backward", "train.backward")):
         assert {spans[spans[i]["parent"]]["name"] for i in names[name]} == {parent}
     for i, s in enumerate(spans):
@@ -225,6 +232,44 @@ def test_train_spans_parents_and_calls():
         while spans[root]["parent"] is not None:
             root = spans[root]["parent"]
         assert s["call"] == spans[root]["call"]
+
+
+@pytest.mark.parametrize("arch", ["squeeze", "cornernet"])
+def test_detector_spans_in_a_train_step(arch):
+    """One step: the backbone and the heads once each under ``train.forward``,
+    every forward pool inside the heads, none of the backward's."""
+    call = train_fn(TINY_SQUEEZE if arch == "squeeze" else TINY_CORNERNET)
+    timer.enable(True)
+    call()
+    spans = timer.snapshot()["spans"]
+    names = by_name(spans)
+    for name in DETECTOR:
+        assert len(names[name]) == 1
+        assert spans[spans[names[name][0]]["parent"]]["name"] == "train.forward"
+    backbone, heads = (spans[names[n][0]] for n in DETECTOR)
+    assert backbone["end"] <= heads["start"]
+    assert len(names["corner_pool.forward"]) == 8
+    assert {spans[i]["parent"] for i in names["corner_pool.forward"]} == {names["detector.heads"][0]}
+
+
+def test_detector_spans_in_the_test_path():
+    """The test path: the backbone, then the last stack's heads (four pools),
+    and the decode after both, outside them."""
+    torch.manual_seed(0)
+    model = cornernet.CornerNetModel(CATS, **TINY_CORNERNET).eval()
+    x = torch.randn(1, 3, 64, 64)
+    timer.enable(True)
+    with torch.no_grad():
+        model(x, test=True)
+    spans = timer.snapshot()["spans"]
+    names = by_name(spans)
+    assert set(names) == {*DETECTOR, "corner_pool.forward"}
+    assert [s["name"] for s in spans if s["parent"] is None] == list(DETECTOR)
+    assert len(names["corner_pool.forward"]) == 4
+    timer.enable(False)
+    with torch.no_grad():
+        model(x, test=True)
+    assert timer.snapshot() == {"spans": [], "counts": {}}
 
 
 def record(name, parent, start, end, call=0, thread=1):
