@@ -6,7 +6,12 @@ multi-device serving and training, the mesh's model axis.
 Drives ``object_keypoints_tpu_torch`` (never jax) once, at full width:
 
 1. device and environment (nvidia-smi name and power limit, torch, CUDA);
-2. builds the CUDA kernels from ``object_keypoints_tpu_torch/csrc``;
+2. builds the CUDA kernels from ``object_keypoints_tpu_torch/csrc``; then
+   the corner pools' two kernels (``okt_corner_pool_fwd`` / ``_bwd``) at
+   the train cells' pool inputs in bf16, (49, 128, 128, 128) and (55, 128,
+   64, 64), each direction: equal to torch.cummax and to scan_max_vjp by
+   torch.equal; each kernel's ms beside its bytes bound, the plain
+   versions' ms and torch.cummax alone (``phase_corner_pool``);
 3. the two stem kernels against their plain version: the fp32 CUDA-core
    kernel (TF32 off, atol 1e-4) at (16, 3, 511, 511) and at the eval
    batch's (8, 3, 511, 511), the bf16 tensor-core
@@ -263,7 +268,11 @@ the kernels' line gives each kernel's launches from those runs. The int8 convolu
 int8 GEMM, not on a kernel of this repository, so they are not in that line;
 phase 11 counts their launches apart. Their input quantize,
 ``okt_quantize_int8``, is: its launches are counted over the int8 serves of
-phases 10, 11, 15 and 16, one an int8 conv (or shard of one) each.
+phases 10, 11, 15 and 16, one an int8 conv (or shard of one) each. The
+corner pools' kernels are counted each by its name
+(``ops.corner_pool._CumMax.launches``) over phase 14's warm and timed full-width
+train steps of each detector, 4 a stack of each kernel a step; the kernels' line
+gives those counts.
 """
 
 import collections
@@ -301,6 +310,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 STEM_KERNELS = {torch.bfloat16: "stem_conv_bf16", torch.float32: "stem_conv_fp32"}
 QUANTIZE_KERNEL = "okt_quantize_int8"  # the int8 route's input quantize; replaces no Pallas kernel
 QUANTIZE_SOURCE = "object_keypoints_tpu_torch/csrc/int8_quantize.cu"
+POOL_KERNELS = ("okt_corner_pool_fwd", "okt_corner_pool_bwd")  # replace no Pallas kernel
+POOL_SOURCE = "object_keypoints_tpu_torch/csrc/corner_pool.cu"
+# the corner pools' inputs in the train cells: CornerNet at batch 49, CornerNet-Squeeze at 55
+POOL_SHAPES = {"cornernet-train-b49": (49, 128, 128, 128), "squeeze-train-b55": (55, 128, 64, 64)}
+POOL_DIRECTIONS = {"top_pool": (2, True), "bottom_pool": (2, False), "left_pool": (3, True),
+                   "right_pool": (3, False)}
 MODEL = dict(heatmaps_out=3)  # the valve KeypointNet at full width: KeypointNet's defaults
 
 
@@ -370,6 +385,72 @@ def phase_build():
     regs = [line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
             if any(k in line for k in ("entry function", "registers", "spill"))]
     log("build", library=lib.name, seconds=seconds, ptxas=regs)
+
+
+def phase_corner_pool():
+    """The corner pools' kernels at the train cells' pool inputs (bf16,
+    channels_last), each pool's direction: the forward held to torch.cummax
+    (flipped for a suffix pool) and the backward to scan_max_vjp by
+    torch.equal, on a map with ties (values rounded to quarters) and a
+    normal cotangent; the kernels' ms (CUDA events over runs of launches)
+    beside their bytes bound (the forward reads x and writes y, the backward
+    reads x and the cotangent and writes the gradient, at 3.35 TB/s), the
+    plain versions' ms (the CPU path's eager ops on the card) and
+    torch.cummax alone (no flip) as the library yardstick. Returns the
+    rows."""
+    from object_keypoints_tpu_torch.ops import corner_pool
+
+    phase_t0 = time.perf_counter()
+    rows, gen = [], torch.Generator(device="cuda").manual_seed(SEED)
+    for cell, (n, c, h, w) in POOL_SHAPES.items():
+        x = (torch.randn((n, h, w, c), generator=gen, device="cuda") * 4).round().div(4)
+        x = x.bfloat16().permute(0, 3, 1, 2)
+        ct = torch.randn((n, h, w, c), generator=gen, device="cuda").bfloat16().permute(0, 3, 1, 2)
+        nbytes = x.numel() * x.element_size()
+        for name, (dim, reverse) in POOL_DIRECTIONS.items():
+            def plain_fwd():
+                if reverse:
+                    return torch.cummax(x.flip(dim), dim)[0].flip(dim)
+                return torch.cummax(x, dim)[0]
+
+            def plain_bwd():
+                if reverse:
+                    return corner_pool.scan_max_vjp(x.flip(dim), ct.flip(dim), dim).flip(dim)
+                return corner_pool.scan_max_vjp(x, ct, dim)
+
+            assert torch.equal(corner_pool.pool_kernel(x, dim, reverse), plain_fwd()), (cell, name)
+            assert torch.equal(corner_pool.pool_grad_kernel(x, ct, dim, reverse), plain_bwd()), (
+                cell, name)
+            row = dict(cell=cell, pool=name, shape=[n, c, h, w],
+                       fwd_ms=kernel_ms(lambda: corner_pool.pool_kernel(x, dim, reverse)),
+                       fwd_bound_ms=1e3 * 2 * nbytes / HBM_BYTES_PER_S,
+                       fwd_plain_ms=kernel_ms(plain_fwd, launches=3, runs=3),
+                       library_ms=kernel_ms(lambda: torch.cummax(x, dim), launches=3, runs=3),
+                       bwd_ms=kernel_ms(lambda: corner_pool.pool_grad_kernel(x, ct, dim, reverse)),
+                       bwd_bound_ms=1e3 * 3 * nbytes / HBM_BYTES_PER_S,
+                       bwd_plain_ms=kernel_ms(plain_bwd, launches=2, runs=3))
+            row["fwd_bound_share"] = row["fwd_bound_ms"] / row["fwd_ms"]
+            row["bwd_bound_share"] = row["bwd_bound_ms"] / row["bwd_ms"]
+            rows.append(row)
+        del x, ct
+        torch.cuda.empty_cache()
+    log("corner_pool_kernels", kernels=POOL_KERNELS, rows=rows,
+        phase_s=time.perf_counter() - phase_t0)
+    return rows
+
+
+def pool_kernel_summary(rows):
+    """Each pool kernel's entry of the kernels' line, from the CornerNet
+    cell's rows (the largest), its four directions' mean."""
+    big = [r for r in rows if r["cell"] == "cornernet-train-b49"]
+    out = {}
+    for name, key in zip(POOL_KERNELS, ("fwd", "bwd")):
+        mean = {k: statistics.mean(r[f"{key}_{k}"] for r in big)
+                for k in ("ms", "bound_ms", "plain_ms")}
+        out[name] = {"equal_to_plain": True, **mean, "bound_by": "bytes",
+                     "library_ms": statistics.mean(r["library_ms"] for r in big) if key == "fwd"
+                     else None, "shape": big[0]["shape"]}
+    return out
 
 
 def stem_inputs(n, dtype, gen):
@@ -2350,10 +2431,12 @@ def warm_step_syncs(step):
 
 def detector_train_run(arch, dataset, card):
     """Full-width bf16 train steps of ``arch`` at its batch on a fixed
-    device-resident batch from the batch stream, then train_detector
-    through the batch stream with the CLI's 2 workers."""
+    device-resident batch from the batch stream (each corner pool kernel
+    launched 4 times a stack a step, counted from 0 over them), then
+    train_detector through the batch stream with the CLI's 2 workers."""
     from object_keypoints_tpu_torch.cli.train_detector import batch_stream
     from object_keypoints_tpu_torch.data.prefetch import device_prefetch
+    from object_keypoints_tpu_torch.ops import corner_pool
     from object_keypoints_tpu_torch.training import detection
 
     system_config, db_config, model, dtype = detector_train_setup(arch)
@@ -2381,7 +2464,14 @@ def detector_train_run(arch, dataset, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step = lambda: step_fn(state, fixed)[1]  # noqa: E731
+    counts = corner_pool._CumMax.launches
+    counts.update(dict.fromkeys(counts, 0))
     losses, cuda_ms, host_ms_ = timed_train_steps(step, DET_TRAIN_WARM, DET_TRAIN_TIMED)
+    pool_launches = dict(counts)
+    per_step = 4 * model.stacks  # two corners a stack, two pools a corner
+    assert pool_launches == dict.fromkeys(POOL_KERNELS, per_step * (DET_TRAIN_WARM
+                                                                    + DET_TRAIN_TIMED)), (
+        "corner pool launches", arch, pool_launches, per_step)
     peak = torch.cuda.max_memory_allocated()
     assert np.isfinite(losses).all(), losses
     assert losses[-1] < losses[0], ("the loss does not fall on a fixed batch", losses)
@@ -2417,6 +2507,7 @@ def detector_train_run(arch, dataset, card):
     assert len(messages) == 1 and np.isfinite(float(messages[0].split("loss ")[1])), messages
     fields.update(
         batch=batch_size, step_ms_cuda_events=cuda_ms, step_ms_host=host_ms_,
+        pool_launches=pool_launches,
         images_per_sec=1e3 * batch_size / host_ms_, peak_mem_gb=peak / 1e9,
         traced_step=dict(device_busy_share=busy, device_ops=ops, wall_ms=wall),
         warm_step_host_syncs=len(syncs), losses_fixed_batch=losses,
@@ -2537,7 +2628,8 @@ def phase_detector_train(card):
     configs' inputs and batches (CornerNet's cut to fit) on batches of the
     train CLI's stream over synthetic 480x640 COCO images, then the loop;
     (b) one float32 step of CornerNet-Squeeze, card against CPU; (c) the
-    tiny detector trained and evaluated by the port's CLIs, mAP > 0.3."""
+    tiny detector trained and evaluated by the port's CLIs, mAP > 0.3.
+    Returns the stem launches of (c) and the corner pool kernels' of (a)."""
     from object_keypoints_tpu_torch.data.coco import CocoDetectionDataset
     from object_keypoints_tpu_torch.data.synthetic import make_synthetic_coco_dataset
 
@@ -2547,12 +2639,13 @@ def phase_detector_train(card):
                                                   n_images=DET_TRAIN_IMAGES,
                                                   image_size=DETECT_IMAGE, seed=SEED)
         dataset = CocoDetectionDataset(ann, images)
+        pools = collections.Counter()
         for arch in ("CornerNet_Squeeze", "CornerNet_Saccade", "CornerNet"):
-            detector_train_run(arch, dataset, card)
+            pools.update(detector_train_run(arch, dataset, card)["pool_launches"])
         detector_step_card_vs_cpu(dataset, card)
         launches = detector_learns(tmp, card)
     log("detector_train_phase", phase_s=time.perf_counter() - phase_t0)
-    return launches
+    return {**launches, **pools}
 
 DIST_BATCH = 8  # the global batch of phase 15's steps: 8 on one rank, 4 on each of two
 DIST_TIMED, DIST_WARM = 10, 3  # bf16 steps timed after the warm ones
@@ -3005,6 +3098,7 @@ def phase_model_axis(card, inputs):
 def main():
     card = phase_device()
     phase_build()
+    pool_rows = phase_corner_pool()
     stem = phase_stem_kernel()
     serve_launches, serve_pps = phase_serve(card)
     paths = [phase_full_forward(), serve_launches, phase_stereo_serve(card)]
@@ -3029,6 +3123,9 @@ def main():
     kernels.append({"name": QUANTIZE_KERNEL, "route": "cuda", "source": QUANTIZE_SOURCE,
                     "replaces": None,
                     "launches": sum(p.get(QUANTIZE_KERNEL, 0) for p in paths), **quantized})
+    for name, row in pool_kernel_summary(pool_rows).items():
+        kernels.append({"name": name, "route": "cuda", "source": POOL_SOURCE, "replaces": None,
+                        "launches": sum(p.get(name, 0) for p in paths), **row})
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its path"
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -86,4 +86,9 @@ def load_library() -> ctypes.CDLL:
     lib.okt_quantize_int8.argtypes = [p, i, p, ctypes.c_float, p, ctypes.c_longlong,
                                       ctypes.c_longlong, p]
     lib.okt_quantize_int8.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    lib.okt_corner_pool_fwd.argtypes = [p, p, i, ll, i, i, i, i, i, p]
+    lib.okt_corner_pool_bwd.argtypes = [p, p, p, i, ll, i, i, i, i, i, p]
+    for fn in (lib.okt_corner_pool_fwd, lib.okt_corner_pool_bwd):
+        fn.restype = ctypes.c_int
     return lib

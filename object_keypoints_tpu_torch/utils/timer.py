@@ -36,7 +36,10 @@ rebuilt (``ops.stem_conv.bf16_taps``), an int8 conv's weights quantized
 again for an input at another scale (``serving.quantize.Int8Conv``). The
 counters ``int8.quantize.kernel`` and ``int8.quantize.relayout`` count the
 quantize kernel's launches and the inputs made channels_last before it
-(``ops.int8_conv.quantize``).
+(``ops.int8_conv.quantize``); ``corner_pool.kernel`` and
+``corner_pool.relayout`` the corner pools' kernel launches, forward and
+backward, and the maps and cotangents made channels_last before them
+(``ops.corner_pool``).
 
 ``trace(log_dir)`` runs ``torch.profiler.profile`` over the region (the CPU,
 and the card where there is one) with the spans on and writes its Chrome
