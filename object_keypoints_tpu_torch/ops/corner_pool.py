@@ -23,10 +23,10 @@ indices, and ``okt_corner_pool_bwd`` (``pool_grad_kernel``),
 of at most ``MAX_LINE``); they read the NHWC memory
 of a channels_last map, and an input or a cotangent that is not NHWC-dense
 is made so first. Nothing falls back: another dtype or a longer line
-raises. ``_CumMax.launches`` counts each kernel's launches by its name;
-the counters ``corner_pool.kernel`` (a launch of either) and
-``corner_pool.relayout`` (a tensor made channels_last) and the spans ``corner_pool.forward`` and
-``corner_pool.backward`` are ``utils.timer``'s.
+raises. The counters ``corner_pool.kernel`` (a launch of either kernel)
+and ``corner_pool.relayout`` (a tensor made channels_last) and the spans
+``corner_pool.forward`` and ``corner_pool.backward`` (each holding one
+launch on the card) are ``utils.timer``'s.
 
 - TopPool:    out[i] = max(x[i:])   along H (dim 2): suffix
 - BottomPool: out[i] = max(x[:i+1]) along H: prefix
@@ -166,7 +166,6 @@ def _launch(name, *tensors, dim, reverse):
             dim, int(reverse), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"corner pool {name} kernel launch failed: cudaError {err}")
-    _CumMax.launches[kernel] += 1
     timer.count("corner_pool.kernel")
     return out
 
@@ -194,8 +193,6 @@ class _CumMax(torch.autograd.Function):
     ``scan_max_vjp``, on the card ``pool_kernel`` and ``pool_grad_kernel``.
     The spans ``corner_pool.forward`` and ``corner_pool.backward``
     (``utils.timer``; a CUDA backward runs on autograd's own thread)."""
-
-    launches = {"okt_corner_pool_fwd": 0, "okt_corner_pool_bwd": 0}  # launches by kernel
 
     @staticmethod
     def forward(ctx, x, dim, reverse):

@@ -78,9 +78,9 @@ def quantize(x, inv_scale):
     even. ``inv_scale`` is a Python float (per tensor) or a float32 (C,)
     tensor (per input channel). A CPU tensor runs ``quantize_plain``; a CUDA
     tensor (bfloat16, float16 or float32) the kernel ``okt_quantize_int8``,
-    counted in ``quantize.launches``, or raises. An input whose memory is
-    not NHWC-dense (channels_last) is made so first, counted in the
-    counter ``int8.quantize.relayout``."""
+    counted in ``int8.quantize.kernel``, or raises. An input whose memory is
+    not NHWC-dense (channels_last) is made so first, counted in
+    ``int8.quantize.relayout`` (both ``utils.timer``'s counters)."""
     if x.device.type == "cpu":
         return quantize_plain(x, inv_scale)
     if x.device.type != "cuda":
@@ -114,7 +114,6 @@ def quantize(x, inv_scale):
                                     torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"quantize kernel launch failed: cudaError {err}")
-    quantize.launches += 1
     timer.count("int8.quantize.kernel")
     return out
 
@@ -301,34 +300,23 @@ def _check(name, xq, packed):
 def int8_conv2d(xq, packed, out_channels: int, kernel: int, stride: int = 1, padding: int = 0):
     """xq (N, H, W, I) int8, ``packed`` from ``pack_conv2d_weight`` ->
     (N, Ho, Wo, O) int32. A CPU tensor runs the plain version; a CUDA tensor
-    the GEMM route (counted in ``int8_conv2d.launches``) or raises."""
+    the GEMM route (its ``int8_mm`` calls open ``int8.mm`` spans) or raises."""
     _check("int8_conv2d", xq, packed)
     if xq.device.type == "cpu":
         wq = unpack_conv2d_weight(packed, out_channels, xq.shape[3], kernel)
         return int8_conv2d_plain(xq, wq, stride, padding)
     if xq.device.type != "cuda":
         raise ValueError(f"int8_conv2d: no GEMM route for device {xq.device}")
-    out = int8_conv2d_gemm(xq, packed, out_channels, kernel, stride, padding)
-    int8_conv2d.launches += 1
-    return out
+    return int8_conv2d_gemm(xq, packed, out_channels, kernel, stride, padding)
 
 
 def int8_conv_transpose2d(xq, packed, out_channels: int):
     """xq (N, H, W, I) int8, ``packed`` from ``pack_conv_transpose2d_weight``
-    -> (N, 2H, 2W, O) int32, as ``int8_conv2d``; counted in
-    ``int8_conv_transpose2d.launches``."""
+    -> (N, 2H, 2W, O) int32, as ``int8_conv2d``."""
     _check("int8_conv_transpose2d", xq, packed)
     if xq.device.type == "cpu":
         wq = unpack_conv_transpose2d_weight(packed, out_channels, xq.shape[3])
         return int8_conv_transpose2d_plain(xq, wq)
     if xq.device.type != "cuda":
         raise ValueError(f"int8_conv_transpose2d: no GEMM route for device {xq.device}")
-    out = int8_conv_transpose2d_gemm(xq, packed, out_channels)
-    int8_conv_transpose2d.launches += 1
-    return out
-
-
-# convolutions run on the GEMM route, quantize kernels launched (CUDA tensors)
-quantize.launches = 0
-int8_conv2d.launches = 0
-int8_conv_transpose2d.launches = 0
+    return int8_conv_transpose2d_gemm(xq, packed, out_channels)

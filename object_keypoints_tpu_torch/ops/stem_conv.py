@@ -9,6 +9,7 @@ the space-to-depth tap matrix and the BN fold.
 CUDA tensor: bf16 frames go to the tensor-core kernel
 (``okt_stem_conv_bf16``), fp32 frames to the CUDA-core kernel
 (``okt_stem_conv_fp32``); on anything the kernels do not take it raises.
+A launch of either counts in ``stem.kernel`` (``utils.timer``).
 Both return an (N, C, Ho, Wo) tensor in channels_last memory format,
 Ho = (H - 1)//2 + 1. On the card it is differentiable, as the JAX
 eval-mode forward is: the TPU kernel has no backward of its own, so the
@@ -155,15 +156,5 @@ def _launch(frames, w, scale, bias):
                      torch.cuda.current_stream(frames.device).cuda_stream)
     if err:
         raise RuntimeError(f"stem_conv kernel launch failed: cudaError {err}")
-    stem_conv.launches += 1
-    if bf16:
-        stem_conv.launches_bf16 += 1
-    else:
-        stem_conv.launches_fp32 += 1
+    timer.count("stem.kernel")
     return out
-
-
-# launches on CUDA tensors: all, and per kernel
-stem_conv.launches = 0
-stem_conv.launches_bf16 = 0
-stem_conv.launches_fp32 = 0

@@ -1,4 +1,4 @@
-"""Scenes, rigs and comparisons shared by the port's tests and chip_smoke.py.
+"""Scenes, rigs, comparisons and rank launchers shared by the port's tests.
 
 - ``bench_camera`` / ``serve_rig``: bench.py's camera chain (511 tall,
   centre cut, into size x size prediction space), for one camera of either
@@ -18,6 +18,8 @@
   work (random heads pair no corners and attend nowhere).
 - ``coco_rows`` / ``compare_coco_rows``: COCO results (results.json) as
   rows, and two of them compared as sets of boxes.
+- ``traced``: a call with ``utils.timer``'s spans and counters on, and what
+  it counted: how the tests count kernel launches.
 - ``launch_ranks``: one process a rank under the launch contract
   (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID``), each with a
   deadline, all killed when one fails; ``rank_steps`` and ``rank_fit``, what
@@ -44,6 +46,7 @@ from object_keypoints_tpu_torch.data.encode import SequenceWriter
 from object_keypoints_tpu_torch.data.scene import SceneDataset
 from object_keypoints_tpu_torch.data.synthetic import synthetic_recording
 from object_keypoints_tpu_torch.geometry import cameras, stereo
+from object_keypoints_tpu_torch.utils import timer
 
 BENCH_OFFSET = np.array([(511.0 / 720.0 * 1280.0 - 511.0) / 2.0, 0.0])  # bench.py:194
 # the valve keypoints of tests/test_stereo_pipeline.py, in the left camera frame (m)
@@ -284,6 +287,22 @@ def compare_coco_rows(what: str, got: np.ndarray, want: np.ndarray, atol_box: fl
     if box > atol_box or score > atol_score:
         raise AssertionError(f"{what}: boxes {box} px, scores {score}; worst pair {worst}")
     return {"rows": len(want), "box_px": box, "score": score}
+
+
+def traced(fn):
+    """fn()'s result, the counts ``utils.timer`` took during it and the
+    number of spans of each name it opened (the card, where there is one,
+    synchronised before the store is read)."""
+    was = timer.enable(True)
+    try:
+        timer.snapshot()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        taken = timer.snapshot()
+    finally:
+        timer.enable(was)
+    return out, taken["counts"], collections.Counter(s["name"] for s in taken["spans"])
 
 
 # ---------------------------------------------------------------- several ranks

@@ -21,25 +21,9 @@ a thread of its own, and its spans belong to the step that started it).
 Take a snapshot between calls: the parent indices of spans open across it
 point into the store it emptied.
 
-The sites: ``serve`` (``serving.export.make_inference_fn``'s call),
-``decode`` with ``decode.peaks``, ``decode.assign``, ``decode.capacity``
-and ``decode.lift`` (``pipeline.decode.decode_objects_batch``);
-``int8.quantize``, ``int8.im2col``, ``int8.mm`` and ``int8.rescale``
-(``serving.quantize``, ``ops.int8_conv``); ``train.step`` with
-``train.forward``, ``train.loss``, ``train.backward`` and
-``train.optimizer`` (``training.detection``); ``detector.backbone`` and
-``detector.heads`` (``models.cornernet``'s forward); ``corner_pool.forward``
-and ``corner_pool.backward`` (``ops.corner_pool``). The counter
-``weights.built`` counts weights made again inside a call: a cast of
-``models.blocks.in_dtype`` that misses its cache, the stem kernel's taps
-rebuilt (``ops.stem_conv.bf16_taps``), an int8 conv's weights quantized
-again for an input at another scale (``serving.quantize.Int8Conv``). The
-counters ``int8.quantize.kernel`` and ``int8.quantize.relayout`` count the
-quantize kernel's launches and the inputs made channels_last before it
-(``ops.int8_conv.quantize``); ``corner_pool.kernel`` and
-``corner_pool.relayout`` the corner pools' kernel launches, forward and
-backward, and the maps and cotangents made channels_last before them
-(``ops.corner_pool``).
+The spans and counters the port opens and counts, with their sites and
+the benchmark metrics that read them, are listed in one place: the table
+"The program's spans and counters" in PERF.md, section 3.
 
 ``trace(log_dir)`` runs ``torch.profiler.profile`` over the region (the CPU,
 and the card where there is one) with the spans on and writes its Chrome

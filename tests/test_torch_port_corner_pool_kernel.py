@@ -1,7 +1,10 @@
 """The corner pools' CUDA kernels against their plain versions, on the card.
 
 A pool on a CUDA tensor launches ``okt_corner_pool_fwd`` and, in its
-backward, ``okt_corner_pool_bwd`` (``csrc/corner_pool.cu``). The forward is
+backward, ``okt_corner_pool_bwd`` (``csrc/corner_pool.cu``); ``utils.timer``
+counts both in ``corner_pool.kernel``, and the pool's spans
+``corner_pool.forward`` and ``corner_pool.backward`` tell the passes apart.
+The forward is
 held to ``torch.cummax`` (flipped for a suffix pool) and the backward to
 ``scan_max_vjp`` run on the same CUDA tensors, both by ``torch.equal``: a
 max is exact, and the backward rounds each two-term sum to the dtype as
@@ -18,14 +21,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from object_keypoints_tpu_torch.ops import corner_pool  # noqa: E402
-from object_keypoints_tpu_torch.utils import timer  # noqa: E402
+from object_keypoints_tpu_torch.testing import traced  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 POOLS = {"top_pool": (2, True), "bottom_pool": (2, False), "left_pool": (3, True),
          "right_pool": (3, False)}
 DTYPES = [torch.bfloat16, torch.float32]
-FWD, BWD = "okt_corner_pool_fwd", "okt_corner_pool_bwd"
-NONE = {FWD: 0, BWD: 0}
+FWD, BWD = "corner_pool.forward", "corner_pool.backward"  # each pass's span
 # the train cells' largest pool inputs: CornerNet at batch 49, CornerNet-Squeeze at 55
 TRAIN_SHAPES = [(49, 128, 128, 128), (55, 128, 64, 64)]
 
@@ -64,30 +66,30 @@ def maps(shape, dtype, device, seed, ties):
     return x.to(dtype).permute(0, 3, 1, 2), ct.to(dtype).permute(0, 3, 1, 2)
 
 
-def launched(before):
-    """Each kernel's launches since ``before``, a copy of the counts."""
-    return {k: n - before[k] for k, n in corner_pool._CumMax.launches.items()}
-
-
 def run_pool(name, x, ct):
     """One forward and one backward: (output, input gradient), and the
-    launches they made."""
-    before = dict(corner_pool._CumMax.launches)
+    counts and spans they made."""
     xd = x.detach().requires_grad_()
-    out = getattr(corner_pool, name)(xd)
-    out.backward(ct)
-    torch.cuda.synchronize()
-    return out.detach(), xd.grad, launched(before)
+
+    def both():
+        out = getattr(corner_pool, name)(xd)
+        out.backward(ct)
+        return out.detach()
+
+    out, counts, spans = traced(both)
+    return out, xd.grad, counts, spans
 
 
 def check(name, x, ct):
+    """A forward and a backward, one launch each; the counts."""
     dim, reverse = POOLS[name]
-    out, grad, launches = run_pool(name, x, ct)
-    assert launches == {FWD: 1, BWD: 1}
+    out, grad, counts, spans = run_pool(name, x, ct)
+    assert counts.get("corner_pool.kernel") == 2 and spans == {FWD: 1, BWD: 1}
     assert out.dtype == grad.dtype == x.dtype
     assert out.permute(0, 2, 3, 1).is_contiguous()
     assert torch.equal(out, cummax(x, dim, reverse)), (name, tuple(x.shape), x.dtype)
     assert torch.equal(grad, plain_vjp(x, ct, dim, reverse)), (name, tuple(x.shape), x.dtype)
+    return counts
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 33, 46), (1, 3, 7, 5), (3, 33, 1, 2), (2, 128, 9, 127),
@@ -122,36 +124,33 @@ def test_the_longest_line(cuda, name):
 
 def test_a_longer_line_raises(cuda):
     x = torch.zeros(1, 2, 1, corner_pool.MAX_LINE + 1, dtype=torch.bfloat16, device=cuda)
-    before = dict(corner_pool._CumMax.launches)
-    with pytest.raises(ValueError, match=str(corner_pool.MAX_LINE)):
-        corner_pool.right_pool(x.requires_grad_())
-    assert launched(before) == NONE
-    out = corner_pool.right_pool(x.detach())  # no gradient asked: the forward takes any length
-    assert launched(before) == {FWD: 1, BWD: 0} and torch.equal(out, x)
+
+    def rejected():
+        with pytest.raises(ValueError, match=str(corner_pool.MAX_LINE)):
+            corner_pool.right_pool(x.requires_grad_())
+
+    _, counts, _ = traced(rejected)
+    assert "corner_pool.kernel" not in counts
+    # no gradient asked: the forward takes any length
+    out, counts, spans = traced(lambda: corner_pool.right_pool(x.detach()))
+    assert counts.get("corner_pool.kernel") == 1 and spans == {FWD: 1} and torch.equal(out, x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
 def test_a_dtype_the_kernels_do_not_take_raises(cuda, dtype):
     x = torch.zeros(1, 8, 4, 4, dtype=dtype, device=cuda)
-    before = dict(corner_pool._CumMax.launches)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        corner_pool.top_pool(x)
-    assert launched(before) == NONE
 
+    def rejected():
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            corner_pool.top_pool(x)
 
-def counted(fn):
-    was = timer.enable(True)
-    try:
-        timer.snapshot()
-        fn()
-        return timer.snapshot()["counts"]
-    finally:
-        timer.enable(was)
+    _, counts, _ = traced(rejected)
+    assert "corner_pool.kernel" not in counts
 
 
 def test_channels_last_input_is_not_relaid(cuda):
     x, ct = maps((2, 16, 9, 11), torch.bfloat16, cuda, 3, False)
-    counts = counted(lambda: check("left_pool", x, ct))
+    counts = check("left_pool", x, ct)
     assert counts == {"corner_pool.kernel": 2}
 
 
@@ -159,19 +158,23 @@ def test_nchw_input_is_relaid_once_and_counted(cuda):
     x, ct = maps((2, 16, 9, 11), torch.bfloat16, cuda, 4, True)
     x = x.contiguous()
     assert not x.permute(0, 2, 3, 1).is_contiguous()
-    counts = counted(lambda: check("top_pool", x, ct))
+    counts = check("top_pool", x, ct)
     assert counts == {"corner_pool.kernel": 2, "corner_pool.relayout": 1}
-    counts = counted(lambda: check("bottom_pool", x, ct.contiguous()))
+    counts = check("bottom_pool", x, ct.contiguous())
     assert counts == {"corner_pool.kernel": 2, "corner_pool.relayout": 2}  # the cotangent too
 
 
 def test_an_empty_map_launches_nothing(cuda):
     x = torch.zeros(0, 8, 4, 4, dtype=torch.bfloat16, device=cuda, requires_grad=True)
-    before = dict(corner_pool._CumMax.launches)
-    out = corner_pool.right_pool(x)
-    out.sum().backward()
+
+    def both():
+        out = corner_pool.right_pool(x)
+        out.sum().backward()
+        return out
+
+    out, counts, _ = traced(both)
     assert out.shape == x.shape and x.grad.shape == x.shape
-    assert launched(before) == NONE
+    assert "corner_pool.kernel" not in counts
 
 
 def test_a_tiny_train_step_launches_sixteen(cuda):
@@ -197,13 +200,7 @@ def test_a_tiny_train_step_launches_sixteen(cuda):
         detection.make_detection_optimizer(SystemConfig()), torch.bfloat16, device=cuda)
     state, _ = detection.detection_train_step(state, batch)  # warm
     torch.cuda.synchronize()
-    before = dict(corner_pool._CumMax.launches)
-
-    def step():
-        detection.detection_train_step(state, batch)
-        torch.cuda.synchronize()
-
-    counts = counted(step)
-    assert launched(before) == {FWD: 8, BWD: 8}
+    _, counts, spans = traced(lambda: detection.detection_train_step(state, batch))
+    assert spans[FWD] == 8 and spans[BWD] == 8
     assert counts.get("corner_pool.kernel") == 16
     assert "corner_pool.relayout" not in counts

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from object_keypoints_tpu_torch.ops import corner_pool
-from object_keypoints_tpu_torch.utils import timer
+from object_keypoints_tpu_torch.testing import traced
 
 POOLS = {"top_pool": (2, True), "bottom_pool": (2, False), "left_pool": (3, True),
          "right_pool": (3, False)}
@@ -93,15 +93,7 @@ def test_the_cpu_path_launches_nothing():
     no counter, no relayout, the two spans."""
     x = torch.randn(2, 4, 6, 5, generator=torch.Generator().manual_seed(0)).to(
         memory_format=torch.channels_last).requires_grad_()
-    before = dict(corner_pool._CumMax.launches)
-    was = timer.enable(True)
-    try:
-        timer.snapshot()
-        sum(getattr(corner_pool, name)(x).sum() for name in POOLS).backward()
-        snap = timer.snapshot()
-    finally:
-        timer.enable(was)
-    assert corner_pool._CumMax.launches == before
-    assert not any(k.startswith("corner_pool.") for k in snap["counts"])
-    names = [s["name"] for s in snap["spans"]]
-    assert names.count("corner_pool.forward") == names.count("corner_pool.backward") == 4
+    _, counts, spans = traced(
+        lambda: sum(getattr(corner_pool, name)(x).sum() for name in POOLS).backward())
+    assert not any(k.startswith("corner_pool.") for k in counts)
+    assert spans["corner_pool.forward"] == spans["corner_pool.backward"] == 4

@@ -9,7 +9,9 @@ so it also runs where jax is not installed:
 fp32 comparisons run with TF32 off (cuDNN and matmul) and atol 1e-4, the
 tolerance of the CPU parity tests; they go to the CUDA-core kernel. bf16
 comparisons go to the tensor-core kernel and allow one output ulp, stated as
-rtol = atol = 1e-2. The stereo decode on the card is held to the
+rtol = atol = 1e-2. The stem wrapper picks its kernel by the frames' dtype
+and counts each launch in ``utils.timer``'s ``stem.kernel``, which the
+tests read with tracing on. The stereo decode on the card is held to the
 CPU decode and to the float64 lift of its own pixels as
 ``object_keypoints_tpu_torch.testing.compare_stereo`` states: masks equal,
 2D within 1e-3 px, 3D within 1e-4 m x max(1, (|p| / 1 m)^3).
@@ -27,10 +29,12 @@ torch = pytest.importorskip("torch")
 
 from object_keypoints_tpu_torch.models.keypoint_net import KeypointNet  # noqa: E402
 from object_keypoints_tpu_torch.ops.stem_conv import stem_conv, stem_conv_plain  # noqa: E402
+from object_keypoints_tpu_torch.testing import traced  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CALIBRATION = "config/calibration.yaml"
+FULL_WIDTH = dict(heatmaps_out=3)  # the valve KeypointNet at full width: KeypointNet's defaults
 
 
 @pytest.fixture
@@ -42,6 +46,12 @@ def cuda(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
+
+
+def _stem_launches(fn):
+    """fn()'s result and the stem kernel's launches in it."""
+    out, counts, _ = traced(fn)
+    return out, counts.get("stem.kernel", 0)
 
 
 def _stem_args(c_out, seed, device):
@@ -57,11 +67,8 @@ def _stem_args(c_out, seed, device):
 def test_stem_fp32_matches_plain(cuda, size, c_out):
     g, w, scale, bias = _stem_args(c_out, size * c_out, cuda)
     x = torch.randn(3, 3, size, size, generator=g).to(cuda)
-    before = stem_conv.launches, stem_conv.launches_fp32, stem_conv.launches_bf16
-    out = stem_conv(x, w, scale, bias)
-    torch.cuda.synchronize()
-    assert (stem_conv.launches, stem_conv.launches_fp32, stem_conv.launches_bf16) == (
-        before[0] + 1, before[1] + 1, before[2])
+    out, launched = _stem_launches(lambda: stem_conv(x, w, scale, bias))
+    assert launched == 1 and out.dtype == x.dtype == torch.float32  # the fp32 kernel
     assert out.shape == (3, c_out, (size + 1) // 2, (size + 1) // 2)
     assert out.is_contiguous(memory_format=torch.channels_last)
     torch.testing.assert_close(out, stem_conv_plain(x, w, scale, bias), atol=1e-4, rtol=0)
@@ -70,11 +77,8 @@ def test_stem_fp32_matches_plain(cuda, size, c_out):
 def _check_bf16_kernel(x, w, scale, bias):
     """One launch of the tensor-core kernel, within one output ulp of the
     plain version (which rounds the taps to bf16 as the kernel does)."""
-    before = stem_conv.launches, stem_conv.launches_fp32, stem_conv.launches_bf16
-    out = stem_conv(x, w, scale, bias)
-    torch.cuda.synchronize()
-    assert (stem_conv.launches, stem_conv.launches_fp32, stem_conv.launches_bf16) == (
-        before[0] + 1, before[1], before[2] + 1)
+    out, launched = _stem_launches(lambda: stem_conv(x, w, scale, bias))
+    assert launched == 1 and x.dtype == torch.bfloat16  # the bf16 kernel
     n, _, h, wd = x.shape
     assert out.dtype == torch.bfloat16 and out.shape == (n, w.shape[0], (h + 1) // 2, (wd + 1) // 2)
     assert out.is_contiguous(memory_format=torch.channels_last)
@@ -109,10 +113,12 @@ def test_stem_bf16_follows_weights_written_in_place(cuda):
 def test_stem_bf16_rejects_c_out_not_a_multiple_of_8(cuda):
     _, w, scale, bias = _stem_args(12, 2, cuda)
     frame = torch.zeros(1, 3, 16, 16, device=cuda, dtype=torch.bfloat16)
-    before = stem_conv.launches
-    with pytest.raises(ValueError, match="C % 8"):
-        stem_conv(frame, w, scale, bias)
-    assert stem_conv.launches == before
+
+    def rejected():
+        with pytest.raises(ValueError, match="C % 8"):
+            stem_conv(frame, w, scale, bias)
+
+    assert _stem_launches(rejected)[1] == 0
     stem_conv(frame.float(), w, scale, bias)  # fp32 takes C % 4 == 0
 
 
@@ -145,14 +151,30 @@ def test_tiny_keypoint_net_kernel_matches_plain_stem(cuda):
                 m.running_var.uniform_(0.5, 1.5, generator=g)
     model = model.to(cuda, memory_format=torch.channels_last).eval()
     x = torch.randn(2, 3, 64, 64, generator=g).to(cuda)
-    before = stem_conv.launches
     with torch.inference_mode():
-        out = model(x)
-        ref = model(x, stem=stem_conv_plain)
-    assert stem_conv.launches == before + 1
+        (out, ref), launched = _stem_launches(lambda: (model(x), model(x, stem=stem_conv_plain)))
+    assert launched == 1
     for got, want in zip((*out.heatmaps, *out.depth, *out.centers),
                          (*ref.heatmaps, *ref.depth, *ref.centers)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_full_width_keypoint_net_kernel_matches_plain_stem(cuda):
+    """The full-width valve KeypointNet (KeypointNet's defaults, seeded
+    weights) in float32 on two 511x511 frames: the eval forward with the
+    fp32 stem kernel, launched once, equals the same forward with the plain
+    stem within 1e-4 x max(1, max |ref|) (rtol 1e-4)."""
+    model = KeypointNet(**FULL_WIDTH, generator=torch.Generator().manual_seed(0))
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.randn(2, 3, 511, 511, generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.inference_mode():
+        (out, ref), launched = _stem_launches(lambda: (model(x), model(x, stem=stem_conv_plain)))
+    assert launched == 1
+    for got, want in zip((*out.heatmaps, *out.depth, *out.centers),
+                         (*ref.heatmaps, *ref.depth, *ref.centers)):
+        assert torch.isfinite(got).all()
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-4)
 
 
 def test_stereo_decode_on_card_matches_cpu(cuda, monkeypatch):
@@ -306,6 +328,53 @@ def test_ground_truth_fast_eval_on_card_matches_cpu(cuda, tmp_path, monkeypatch)
         for name in ("heatmaps", "depth", "centers"):
             torch.testing.assert_close(torch.from_numpy(got[name]), torch.from_numpy(want[name]),
                                        atol=1e-6, rtol=0)
+
+
+def test_learned_fast_eval_on_card_decodes_as_the_cpu(cuda, tmp_path, monkeypatch):
+    """evaluate_sequence_fast with a learned model on the card: the
+    full-width valve KeypointNet (seeded weights) written by export_model
+    and read back by load_inference_fn
+    (float32: the fp32 stem kernel once a batch), over a synthetic sequence
+    held in memory; its maps finite on the card, and one batch's decode on
+    the card equal to the CPU decode of the same maps (masks equal, 2D
+    within 1e-4 px, 3D within 1e-5 m)."""
+    from object_keypoints_tpu_torch import evaluation
+    from object_keypoints_tpu_torch.pipeline.decode import (
+        CameraArrays,
+        DecodedObjects,
+        decode_objects_batch,
+    )
+    from object_keypoints_tpu_torch.serving.export import export_model, load_inference_fn
+    from object_keypoints_tpu_torch.testing import synthetic_sequence_in_memory
+
+    monkeypatch.chdir(ROOT)
+    config = {"keypoint_config": [1, 3]}
+    seq_dir = str(tmp_path / "seq")
+    recording = synthetic_sequence_in_memory(seq_dir, CALIBRATION, (1, 3), n_frames=6, seed=7)
+    seq = evaluation.Sequence(seq_dir, config, device=cuda, recording=recording)
+    artifact = str(tmp_path / "artifact")
+    export_model(artifact, {**FULL_WIDTH, "input_size": 511, **config},
+                 KeypointNet(**FULL_WIDTH, generator=torch.Generator().manual_seed(0)))
+    infer = load_inference_fn(artifact, device=cuda)
+    result, launched = _stem_launches(lambda: evaluation.evaluate_sequence_fast(
+        seq, infer, config, batch_size=4, ground_truth=False))
+    assert launched == 2 and len(result.gt_keypoints) == 6  # batches of 4 and 2
+
+    maps = infer(evaluation.batch_frames(list(seq.dataset.iter_prefix())[:4], cuda))
+    assert [tuple(t.shape) for t in maps] == [(4, 3, 64, 64), (4, 3, 64, 64), (4, 2, 2, 64, 64)]
+    for t in maps:
+        assert t.device.type == "cuda" and t.dtype == torch.float32 and torch.isfinite(t).all()
+    cam = seq.camera_small
+    kw = dict(keypoint_config=(1, 3), model=cam.distortion_model, max_peaks=16)
+    card = decode_objects_batch(*maps, CameraArrays.from_camera(cam, device=cuda), **kw)
+    cpu = decode_objects_batch(*(t.cpu() for t in maps), CameraArrays.from_camera(cam), **kw)
+    for name in DecodedObjects._fields:
+        got, want = getattr(card, name).cpu(), getattr(cpu, name)
+        if got.is_floating_point():
+            tol = 1e-5 if name.endswith("p3d") else 1e-4
+            torch.testing.assert_close(got, want, atol=tol, rtol=0, msg=lambda m: f"{name}: {m}")
+        else:
+            assert torch.equal(got, want), name
 
 
 # ------------------------------------------------- training slice and repairs
@@ -475,10 +544,9 @@ def test_stem_kernel_gradients_equal_the_plain_ones(cuda, dtype):
     grads = []
     for fn in (stem_conv, stem_conv_plain):
         leaves = [t.clone().requires_grad_() for t in (x, w, scale, bias)]
-        before = stem_conv.launches
-        out = fn(*leaves)
+        out, launched = _stem_launches(lambda: fn(*leaves))
         assert out.grad_fn is not None
-        assert stem_conv.launches == before + (fn is stem_conv)
+        assert launched == (fn is stem_conv)
         grads.append(torch.autograd.grad((out.float() * r).sum(), leaves))
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     for name, got, want in zip(("frames", "w", "scale", "bias"), *grads):
@@ -621,9 +689,8 @@ def test_loop_on_the_card_checkpoints_and_exports(cuda, tmp_path, monkeypatch):
 
     monkeypatch.chdir(ROOT)
     config, train_sets, val_sets = _loop_run(tmp_path)
-    before = stem_conv.launches_bf16
-    result = loop.fit(config, train_sets, val_sets, device=cuda)
-    assert stem_conv.launches_bf16 == before + 2
+    result, launched = _stem_launches(lambda: loop.fit(config, train_sets, val_sets, device=cuda))
+    assert launched == 2 and config.bf16  # a bf16 eval_step an epoch: the bf16 kernel
     assert result["steps"] == 8 and numpy.isfinite(result["best_val_loss"])
     ckpt = checkpoints.CheckpointManager(config.out_dir)
     assert ckpt.best_val == result["best_val_loss"]
@@ -708,23 +775,23 @@ INT8_SHAPES = [  # (n, h, w, c_in, c_out, kernel, stride, padding)
 @pytest.mark.parametrize("shape", INT8_SHAPES)
 def test_int8_gemm_route_on_card_equals_plain(cuda, shape):
     """The GEMM route on the card gives the plain version's int32 sums
-    exactly, and the wrapper counts its launch."""
+    exactly; its GEMMs open ``int8.mm`` spans, one for the conv (its frames
+    fit one chunk of columns) and one for each of the ConvTranspose's four
+    output phases."""
     from object_keypoints_tpu_torch.ops import int8_conv
 
     n, h, w, c, o, k, s, p = shape
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     xq = torch.randint(-127, 128, (n, h, w, c), generator=g, dtype=torch.int8, device=cuda)
     wq = torch.randint(-127, 128, (o, c, k, k), generator=g, dtype=torch.int8, device=cuda)
-    before = int8_conv.int8_conv2d.launches
-    got = int8_conv.int8_conv2d(xq, int8_conv.pack_conv2d_weight(wq), o, k, s, p)
-    torch.cuda.synchronize()
-    assert int8_conv.int8_conv2d.launches == before + 1 and got.device.type == "cuda"
+    got, _, spans = traced(
+        lambda: int8_conv.int8_conv2d(xq, int8_conv.pack_conv2d_weight(wq), o, k, s, p))
+    assert spans["int8.mm"] == 1 and got.device.type == "cuda"
     assert torch.equal(got, int8_conv.int8_conv2d_plain(xq, wq, s, p))
     wt = torch.randint(-127, 128, (c, o, 4, 4), generator=g, dtype=torch.int8, device=cuda)
-    before = int8_conv.int8_conv_transpose2d.launches
-    got = int8_conv.int8_conv_transpose2d(xq, int8_conv.pack_conv_transpose2d_weight(wt), o)
-    torch.cuda.synchronize()
-    assert int8_conv.int8_conv_transpose2d.launches == before + 1
+    got, _, spans = traced(
+        lambda: int8_conv.int8_conv_transpose2d(xq, int8_conv.pack_conv_transpose2d_weight(wt), o))
+    assert spans["int8.mm"] == 4
     assert torch.equal(got, int8_conv.int8_conv_transpose2d_plain(xq, wt))
 
 
@@ -751,17 +818,26 @@ def test_int8_artifact_on_card_matches_cpu(cuda, tmp_path, monkeypatch, dtype):
     """load_inference_fn("auto") serves an artifact with quant.json int8 on
     the card, every eligible conv on the GEMM route (OKT_INT8_SKIP=""),
     within tests/test_quantize.py's budgets of the CPU's int8 forward
-    (sigmoid heatmaps 0.02, depth 5 mm, centers 0.25 px)."""
-    from object_keypoints_tpu_torch.ops import int8_conv
-    from object_keypoints_tpu_torch.serving.export import load_inference_fn
+    (sigmoid heatmaps 0.02, depth 5 mm, centers 0.25 px). Each of the
+    served model's Int8Conv modules quantizes its input once on the kernel
+    and multiplies on the GEMM route (``int8.mm`` spans): a conv in one
+    GEMM at this size, a ConvTranspose in four, one for each output
+    phase."""
+    from object_keypoints_tpu_torch.serving.export import load_inference_fn, load_served_model
+    from object_keypoints_tpu_torch.serving.quantize import Int8Conv, quantize_model
 
     monkeypatch.setenv("OKT_INT8_SKIP", "")
     frames = _int8_artifact(tmp_path)
+    served, scales = load_served_model(str(tmp_path))
+    quantize_model(served, scales)
+    transposes = [m.transpose for m in served.modules() if isinstance(m, Int8Conv)]
+    n_transpose = sum(transposes)
+    assert n_transpose > 0
     dt = getattr(torch, dtype)
-    before = int8_conv.int8_conv2d.launches, int8_conv.int8_conv_transpose2d.launches
-    card = load_inference_fn(str(tmp_path), dtype=dt, device=cuda)(frames.to(cuda))
-    assert int8_conv.int8_conv2d.launches > before[0]
-    assert int8_conv.int8_conv_transpose2d.launches > before[1]
+    infer = load_inference_fn(str(tmp_path), dtype=dt, device=cuda)
+    card, counts, spans = traced(lambda: infer(frames.to(cuda)))
+    assert counts.get("int8.quantize.kernel") == len(transposes)
+    assert spans["int8.mm"] == len(transposes) - n_transpose + 4 * n_transpose
     cpu = load_inference_fn(str(tmp_path), dtype=dt, device="cpu")(frames)
     for got, want, limit in zip(card, cpu, (0.02, 0.005, 0.25)):
         assert got.device.type == "cuda" and torch.isfinite(got).all()
@@ -785,18 +861,31 @@ def test_warm_int8_forward_never_waits_for_the_card(cuda, tmp_path, monkeypatch)
 
 # --- the CornerNet detector -------------------------------------------------
 
+STEM_FRAMES = [
+    (1, 3, 511, 767), (2, 3, 255, 383),  # a 480x640 image padded to size | 127 at scale 1, 0.5
+    (16, 3, 511, 511), (8, 3, 511, 511),  # the eval's batch, eval_step's
+    (96, 3, 511, 511),  # the serve step's 48 pairs
+    (2, 3, 511, 767), (2, 3, 383, 511),  # the detectors' flipped scales
+    (2, 3, 639, 895), (2, 3, 767, 1023),
+    (2, 3, 255, 255), (32, 3, 255, 255),  # the saccade's views and its bucket of crops
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 3, 511, 767), (2, 3, 255, 383)])
+@pytest.mark.parametrize("shape", STEM_FRAMES)
 def test_stem_kernel_at_the_detectors_frames(cuda, shape, dtype):
-    """The detector's non-square frames (a 480x640 image padded to size |
-    127 at scale 1 and 0.5) through the kernel of their dtype."""
+    """The frames the main paths give the stem, the detectors' non-square
+    ones first, with 128 output channels as every model here has, through
+    the kernel of their dtype: fp32 within atol 1e-4, bf16 within one
+    output ulp of the plain version."""
     g, w, scale, bias = _stem_args(128, shape[2] + shape[3], cuda)
     x = torch.randn(*shape, generator=g).to(cuda, dtype)
     if dtype == torch.bfloat16:
         _check_bf16_kernel(x, w, scale, bias)
         return
-    out = stem_conv(x, w, scale, bias)
-    assert out.shape == (shape[0], 128, (shape[2] + 1) // 2, (shape[3] + 1) // 2)
+    out, launched = _stem_launches(lambda: stem_conv(x, w, scale, bias))
+    assert launched == 1 and out.shape == (shape[0], 128, (shape[2] + 1) // 2, (shape[3] + 1) // 2)
+    assert out.is_contiguous(memory_format=torch.channels_last)
     torch.testing.assert_close(out, stem_conv_plain(x, w, scale, bias), atol=1e-4, rtol=0)
 
 
@@ -1162,10 +1251,8 @@ def test_model_axis_serve_on_card_matches_single(cuda):
     single = make_inference_fn(copy.deepcopy(model), device=cuda)
     split = make_sharded_inference_fn(model, devices=["cuda:0"] * 2, model_parallel=2)
     want = single(frames)
-    before = stem_conv.launches_fp32
-    got = split(frames)
-    torch.cuda.synchronize()
-    assert stem_conv.launches_fp32 == before + 1
+    got, launched = _stem_launches(lambda: split(frames))
+    assert launched == 1 and frames.dtype == torch.float32  # the fp32 kernel
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == torch.float32
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

@@ -52,6 +52,7 @@ from object_keypoints_tpu_torch.ops import int8_conv  # noqa: E402
 from object_keypoints_tpu_torch.pipeline.components import InferenceComponent  # noqa: E402
 from object_keypoints_tpu_torch.serving import export, weights  # noqa: E402
 from object_keypoints_tpu_torch.serving import quantize as Q  # noqa: E402
+from object_keypoints_tpu_torch.testing import traced  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -245,13 +246,13 @@ def test_wrappers_run_the_plain_version_on_the_cpu():
     g = torch.Generator().manual_seed(1)
     xq = torch.randint(-127, 128, (2, 6, 6, 16), generator=g, dtype=torch.int8)
     wq = torch.randint(-127, 128, (8, 16, 3, 3), generator=g, dtype=torch.int8)
-    before = int8_conv.int8_conv2d.launches, int8_conv.int8_conv_transpose2d.launches
-    got = int8_conv.int8_conv2d(xq, int8_conv.pack_conv2d_weight(wq), 8, 3, 1, 1)
-    assert torch.equal(got, int8_conv.int8_conv2d_plain(xq, wq, 1, 1))
     wt = torch.randint(-127, 128, (16, 8, 4, 4), generator=g, dtype=torch.int8)
-    got = int8_conv.int8_conv_transpose2d(xq, int8_conv.pack_conv_transpose2d_weight(wt), 8)
-    assert torch.equal(got, int8_conv.int8_conv_transpose2d_plain(xq, wt))
-    assert (int8_conv.int8_conv2d.launches, int8_conv.int8_conv_transpose2d.launches) == before
+    (got, got_t), _, spans = traced(lambda: (
+        int8_conv.int8_conv2d(xq, int8_conv.pack_conv2d_weight(wq), 8, 3, 1, 1),
+        int8_conv.int8_conv_transpose2d(xq, int8_conv.pack_conv_transpose2d_weight(wt), 8)))
+    assert torch.equal(got, int8_conv.int8_conv2d_plain(xq, wq, 1, 1))
+    assert torch.equal(got_t, int8_conv.int8_conv_transpose2d_plain(xq, wt))
+    assert "int8.mm" not in spans  # the GEMM route's span: no GEMM ran
     with pytest.raises(TypeError):
         int8_conv.int8_conv2d(xq.float(), int8_conv.pack_conv2d_weight(wq), 8, 3)
 

@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from object_keypoints_tpu_torch.ops.int8_conv import quantize, quantize_plain  # noqa: E402
-from object_keypoints_tpu_torch.utils import timer  # noqa: E402
+from object_keypoints_tpu_torch.testing import traced  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
@@ -59,17 +59,16 @@ def _activation(shape, dtype, inv, device, seed):
 
 
 def _check(x, inv):
-    """One launch, the plain version's codes, NHWC int8 contiguous."""
-    before = quantize.launches
-    got = quantize(x, inv)
-    torch.cuda.synchronize()
-    assert quantize.launches == before + 1
+    """One launch, the plain version's codes, NHWC int8 contiguous: the
+    codes and the call's counts."""
+    got, counts, _ = traced(lambda: quantize(x, inv))
+    assert counts.get("int8.quantize.kernel") == 1
     n, c, h, w = x.shape
     assert got.dtype == torch.int8 and got.shape == (n, h, w, c) and got.is_contiguous()
     assert got.device == x.device
     want = quantize_plain(x, inv)
     assert torch.equal(got, want)
-    return got
+    return got, counts
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 9, 7), (3, 24, 5, 5), (2, 256, 17, 13),
@@ -90,7 +89,7 @@ def test_ties_and_clips_pinned_on_the_card(cuda):
     want = [0, 2, 2, 0, -2, -2, 126, -126, 127, -127, 127, -127, 127, -127, 0, -1]
     for dtype in DTYPES:
         x = torch.tensor(values * 2, dtype=dtype, device=cuda).view(1, 2, 2, 8)
-        got = _check(x.permute(0, 3, 1, 2), 1.0)
+        got, _ = _check(x.permute(0, 3, 1, 2), 1.0)
         assert got.reshape(-1).tolist() == want * 2
 
 
@@ -113,26 +112,14 @@ def test_nchw_contiguous_input_is_relaid_once(cuda):
     inv = _inv(32, True, cuda, 5)
     x = _activation((2, 32, 9, 11), torch.bfloat16, inv, cuda, 5).contiguous()
     assert not x.permute(0, 2, 3, 1).is_contiguous()
-    was = timer.enable(True)
-    try:
-        timer.snapshot()
-        _check(x, inv)
-        counts = timer.snapshot()["counts"]
-    finally:
-        timer.enable(was)
+    _, counts = _check(x, inv)
     assert counts.get("int8.quantize.relayout") == 1
     assert counts.get("int8.quantize.kernel") == 1
 
 
 def test_channels_last_input_is_not_relaid(cuda):
     x = _activation((2, 32, 9, 11), torch.bfloat16, 0.5, cuda, 6)
-    was = timer.enable(True)
-    try:
-        timer.snapshot()
-        _check(x, 0.5)
-        counts = timer.snapshot()["counts"]
-    finally:
-        timer.enable(was)
+    _, counts = _check(x, 0.5)
     assert "int8.quantize.relayout" not in counts and counts["int8.quantize.kernel"] == 1
 
 
@@ -148,26 +135,27 @@ def test_unaligned_input_takes_the_scalar_path(cuda):
 
 def test_repeated_calls_count_one_launch_each(cuda):
     x = _activation((1, 16, 4, 4), torch.bfloat16, 0.5, cuda, 9)
-    before = quantize.launches
-    for _ in range(3):
-        quantize(x, 0.5)
-    assert quantize.launches == before + 3
+    _, counts, _ = traced(lambda: [quantize(x, 0.5) for _ in range(3)])
+    assert counts["int8.quantize.kernel"] == 3
 
 
 def test_an_empty_input_launches_nothing(cuda):
-    before = quantize.launches
-    got = quantize(torch.empty(0, 16, 4, 4, dtype=torch.bfloat16, device=cuda), 0.5)
+    got, counts, _ = traced(
+        lambda: quantize(torch.empty(0, 16, 4, 4, dtype=torch.bfloat16, device=cuda), 0.5))
     assert got.shape == (0, 4, 4, 16) and got.dtype == torch.int8
-    assert quantize.launches == before
+    assert "int8.quantize.kernel" not in counts
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.float64])
 def test_a_dtype_the_kernel_does_not_take_raises(cuda, dtype):
     x = torch.zeros(1, 8, 2, 2, dtype=dtype, device=cuda)
-    before = quantize.launches
-    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
-        quantize(x, 1.0)
-    assert quantize.launches == before
+
+    def rejected():
+        with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+            quantize(x, 1.0)
+
+    _, counts, _ = traced(rejected)
+    assert "int8.quantize.kernel" not in counts
 
 
 def test_a_scale_on_another_device_or_width_raises(cuda):

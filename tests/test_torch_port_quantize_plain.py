@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 from object_keypoints_tpu_torch.ops import _build, int8_conv  # noqa: E402
 from object_keypoints_tpu_torch.ops.int8_conv import quantize, quantize_plain  # noqa: E402
 from object_keypoints_tpu_torch.serving.quantize import Int8Conv  # noqa: E402
-from object_keypoints_tpu_torch.utils import timer  # noqa: E402
+from object_keypoints_tpu_torch.testing import traced  # noqa: E402
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
@@ -39,18 +39,9 @@ def test_cpu_tensor_takes_the_plain_version(no_library, dtype, per_channel):
     g = torch.Generator().manual_seed(7)
     x = (torch.randn(2, 24, 5, 3, generator=g) * 90).to(dtype)
     inv = torch.rand(24, generator=g) + 0.5 if per_channel else 1.37
-    before = quantize.launches
-    was = timer.enable(True)
-    try:
-        got = quantize(x, inv)
-        counts = timer.snapshot()["counts"]
-    finally:
-        timer.enable(was)
+    got, counts, _ = traced(lambda: quantize(x, inv))
     assert torch.equal(got, quantize_plain(x, inv))
     assert got.dtype == torch.int8 and got.shape == (2, 5, 3, 24) and got.is_contiguous()
-    assert quantize.launches == before
-    if not torch.cuda.is_available():  # nothing in this process launched the kernel
-        assert before == 0
     assert "int8.quantize.kernel" not in counts and "int8.quantize.relayout" not in counts
 
 
@@ -101,10 +92,13 @@ def test_nchw_contiguous_input_gives_the_same_codes():
 
 def test_a_device_without_a_kernel_raises(no_library):
     x = torch.empty(1, 8, 2, 2, device="meta")
-    before = quantize.launches
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        quantize(x, 1.0)
-    assert quantize.launches == before
+
+    def rejected():
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            quantize(x, 1.0)
+
+    _, counts, _ = traced(rejected)
+    assert "int8.quantize.kernel" not in counts
 
 
 def test_every_dtype_the_kernel_takes_has_a_code():

@@ -17,7 +17,8 @@ the JAX package as in the port. The stereo decode: masks equal, 2D within
 1e-4 px, 3D within 1e-4 m within 3 m of the camera and 1e-4 m x (|p| / 1 m)^3
 from there on (``object_keypoints_tpu_torch.testing.compare_stereo``). The float32
 decode against the float64 lift of its own pixels: 3D within
-1e-4 m x max(1, (|p| / 1 m)^3), the bound chip_smoke.py holds the card to.
+1e-4 m x max(1, (|p| / 1 m)^3), the bound the card's decode is held to
+(tests/test_torch_port_gpu.py).
 """
 
 import numpy as np
@@ -445,7 +446,7 @@ def test_stereo_slice_tiny_artifact(artifact, calibration_file):
 def test_stereo_decode_float32_within_bound_of_float64_lift(calibration_file, seed):
     """The float32 decode of random maps through bench.py's chain (dense
     matches, many at near-zero disparity) against the float64 lift of its
-    own matched pixels, the bound chip_smoke.py holds the card to; and the
+    own matched pixels, the bound the card's decode is held to; and the
     bound's premise, that the rounding is the DLT's and not the
     correction's: the float32 correction differs from the float64 one by
     under 1e-4 px."""
